@@ -1,0 +1,56 @@
+"""The port runs without JAX, and never falls back to the CPU when it was
+asked for the card."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import linkpred_tpu_torch
+    from linkpred_tpu.data import io
+    from linkpred_tpu.data.twowl import build_twowl_data
+    from linkpred_tpu_torch.models import twowl as m
+    from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
+
+    _, edges = io.load_fb_pages_food()
+    data = build_twowl_data(edges, int(edges.max()) + 1,
+                            rng=np.random.default_rng(0))
+    cfg = m.TwoWLConfig(max_degree=data.max_degree, agg_1wl="ell")
+    res = tp.train_routine_fused(data, cfg, tp.TwoWLRunConfig(epochs=2), "cpu")
+    assert np.isfinite(res["loss_history"]).all(), res["loss_history"]
+    assert 0.0 <= res["test_auc"] <= 1.0
+    assert "jax" not in sys.modules and "optax" not in sys.modules
+    print("JAX-FREE OK")
+""")
+
+
+def test_port_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX-FREE OK" in proc.stdout
+
+
+def test_no_card_raises(monkeypatch, tmp_path):
+    """Without CUDA, `cuda_device()` and the CLI raise before any work: no
+    silent run on the CPU, no file written."""
+    from linkpred_tpu_torch import cli
+    from linkpred_tpu_torch.utils.device import cuda_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cuda_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--quiet", "twowl", "--epochs", "1", "--trials", "1"])
+    assert list(tmp_path.iterdir()) == []
