@@ -3,17 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 from `linkpred_tpu_torch/csrc/`, holds it against its plain
-PyTorch version on the card, and drives the port's main path — TwoWL on
-fb-pages-food at the published-best widths — through `train_routine_fused`
-and the `run_twowl` entry point. One line per phase; then one JSON line of
-kernel results, the card's name and power limit as nvidia-smi gives them,
-and last `{"ok": true, "device": {...}}`. Nothing catches a failed phase:
-without a card, or without the rest of the repository, it raises and exits
-non-zero before printing any result.
+Builds kernels K1, K3 and K2 from `linkpred_tpu_torch/csrc/` (one nvcc per
+source, all at once), holds each against its plain PyTorch version on the
+card, and drives the port's two paths through the entry points a user
+calls: TwoWL on fb-pages-food at the published-best widths
+(`train_routine_fused`, `run_twowl`; K1), and collab-scale GCN training at
+the full published config (`train_collab`, `cli scale --family gcn`; K3 and
+K2). One line per phase; then one JSON line of kernel results, the card's
+name and power limit as nvidia-smi gives them, and last `{"ok": true,
+"device": {...}}`. Nothing catches a failed phase: without a card, or
+without the rest of the repository, it raises and exits non-zero before
+printing any result.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -27,6 +32,18 @@ import torch
 K1_TOL = 1e-5  # max abs error of K1 against its plain version (f32 sums)
 LOSS_RTOL = 1e-3  # 'ell' vs 'plan' loss histories, phase (d)
 VAL_AUC_FLOOR = 0.65  # best val AUC after 200 epochs (JAX on CPU: 0.731)
+# K3 / K2 against their plain versions: f32 as K1; bf16 outputs of K3 are
+# f32 sums rounded once, in another order than the plain version's, so
+# they may differ by one bf16 ulp (rtol 2^-7); K2 returns f32 sums
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2**-7, atol=1e-6)
+K2_TOL = dict(rtol=1e-5, atol=1e-4)
+GCN_AUC_FLOOR = 0.89  # test AUC after 60 steps (JAX on CPU: 0.9082, seed 0)
+# the keys `linkpred_tpu.pipelines.gcn_scale.train_collab` returns
+GCN_KEYS = {"nodes", "directed_edges", "shards", "aggregation", "steps",
+            "loss_first_quarter", "loss_last_quarter", "loss_decreased",
+            "test_auc", "train_seconds", "compile_seconds", "build_seconds",
+            "steps_per_s", "agg_edges_per_s"}
 
 
 def phase(step, **kv):
@@ -66,6 +83,242 @@ def kernel_ms(fn, iters=50):
     return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
 
 
+def step_profile(train, steps):
+    """Kernels per step, device ms per step and the heaviest kernels of
+    `train()` (which runs `steps` steps), from a torch.profiler trace.
+    Annotation ranges the trace shows on the card (e.g.
+    `Optimizer.step#Adam.step`) overlap real kernels: device events whose
+    name is also a host event's are dropped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = {e.name for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in host]
+    assert kernels, "the profiler saw no kernel on the card"
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"kernels_per_step": len(kernels) / steps,
+            "device_ms_per_step": sum(by_name.values()) / steps / 1e3,
+            "top_ms_per_step": [[k[:100], v / steps / 1e3] for k, v in top]}
+
+
+def check(name, got, ref, tol):
+    """Assert `got` close to `ref` within `tol`; return the max abs error."""
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype, name
+    assert torch.isfinite(got).all(), name
+    torch.testing.assert_close(got.float(), ref.float(), **tol, msg=name)
+    return float((got.float() - ref.float()).abs().max()) if got.numel() else 0.0
+
+
+def time_in_turns(plain, kernel):
+    """Device ms per call (profiler kernel sums) and host-issued ms per call
+    (CUDA events) of `plain` and `kernel`, run in turns plain, kernel,
+    kernel, plain so both see the same warm card."""
+    dev_ms = [kernel_ms(f) for f in (plain, kernel, kernel, plain)]
+    call_ms = [cuda_ms(f) for f in (plain, kernel, kernel, plain)]
+    return {"ms": (dev_ms[1] + dev_ms[2]) / 2,
+            "plain_ms": (dev_ms[0] + dev_ms[3]) / 2,
+            "device_ms_plain_kernel_kernel_plain": dev_ms,
+            "per_call_ms_plain_kernel_kernel_plain": call_ms}
+
+
+def gcn_phases(dev, hk):
+    """(g)-(l): the GCN slice at the full published config (235k nodes, emb
+    64, hidden 128, bf16, batch 8,192, 60 steps, lr 3e-3: the config of the
+    reference's `bench.py:gate_collab_e2e`). Returns the main path's launch
+    counts and K3's and K2's errors and times for the kernels line."""
+    from linkpred_tpu_torch import cli
+    from linkpred_tpu_torch.ops import sddmm as sd
+    from linkpred_tpu_torch.ops import spmm
+    from linkpred_tpu_torch.pipelines import gcn_scale as gs
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = gs.ScaleGCNConfig(steps=60, learning_rate=3e-3)
+    N = cfg.nodes
+
+    # (g) the seed-0 problem and its bucketed layout on the card
+    t0 = time.perf_counter()
+    problem = gs.build_problem(cfg)
+    g, train_pos, test_pos, test_neg = problem
+    lay = spmm.BucketedEll.from_graph(g)
+    ops = lay.operands(dev)
+    phase("g_gcn_data", nodes=N, directed_edges=g.num_edges,
+          buckets=[list(nb.shape) for _, nb, _ in lay.buckets],
+          slots=lay.num_slots, train_pos=len(train_pos),
+          test_pos=len(test_pos), test_neg=len(test_neg),
+          build_seconds=time.perf_counter() - t0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def feats(rows, f, dtype):
+        return torch.randn((rows, f), generator=gen, device=dev).to(dtype)
+
+    # (h) K3 against spmm_bucketed_reference: the slice layout at the
+    # widths of both layers, ragged F, and two small layouts
+    ring = np.stack([(np.arange(50) - 1) % 50, (np.arange(50) + 1) % 50], 1)
+    small = {
+        "no edges": spmm.BucketedEll.build(np.zeros((9, 1), np.int32),
+                                           np.zeros((9, 1), bool)),
+        "one bucket": spmm.BucketedEll.build(
+            ring.astype(np.int32), np.ones((50, 2), bool),
+            np.full((50, 2), 0.5, np.float32)),
+    }
+    cases = {
+        "slice x64 bf16": (feats(N, 64, bf16), ops, BF16_TOL),
+        "slice x128 bf16": (feats(N, 128, bf16), ops, BF16_TOL),
+        "slice x64 f32": (feats(N, 64, f32), ops, F32_TOL),
+        "slice x128 f32": (feats(N, 128, f32), ops, F32_TOL),
+        "slice x33 bf16": (feats(N, 33, bf16), ops, BF16_TOL),
+        "slice x1 f32": (feats(N, 1, f32), ops, F32_TOL),
+        "no edges x7 bf16": (feats(9, 7, bf16), small["no edges"].operands(dev),
+                             BF16_TOL),
+        "one bucket x7 f32": (feats(50, 7, f32),
+                              small["one bucket"].operands(dev), F32_TOL),
+    }
+    k3_err = 0.0
+    for name, (x, ops_, tol) in cases.items():
+        before = hk.LAUNCHES["spmm_bucketed"]
+        got = hk.spmm_bucketed(x, *ops_)
+        assert hk.LAUNCHES["spmm_bucketed"] == before + 1, name
+        err = check(name, got, hk.spmm_bucketed_reference(x, *ops_), tol)
+        k3_err = max(k3_err, err)
+        phase("h_k3_check", case=name, x=list(x.shape), max_abs_err=err)
+    for dtype, tol in ((bf16, BF16_TOL), (f32, F32_TOL)):
+        x, t = feats(N, 128, dtype), feats(N, 128, dtype)
+        grads = []
+        for sym in (spmm.spmm_bucketed_sym, spmm.spmm_bucketed_sym_reference):
+            xx = x.clone().requires_grad_()
+            (sym(xx, N, ops).float() * t.float()).sum().backward()
+            grads.append(xx.grad)
+        err = check(f"backward x128 {dtype}", grads[0], grads[1], tol)
+        k3_err = max(k3_err, err)
+        phase("h_k3_backward", x=list(x.shape), dtype=str(dtype),
+              max_abs_err=err)
+    k3_time = {}
+    for f in (64, 128):
+        x = feats(N, f, bf16)
+        k3_time[f] = time_in_turns(
+            lambda: hk.spmm_bucketed_reference(x, *ops),
+            lambda: hk.spmm_bucketed(x, *ops))
+        phase("h_k3_time", case=f"slice x{f} bf16", **k3_time[f])
+
+    # (i) K2 against sddmm_reference: a training step's 2 x 8,192 pairs and
+    # the 51,200 test pairs at F = 128, then ragged cases
+    batches = torch.from_numpy(gs.batch_schedule(cfg, train_pos)).to(dev)
+    both = np.concatenate([test_pos, test_neg]).astype(np.int32)
+    test_pairs = torch.from_numpy(np.ascontiguousarray(both.T)).to(dev)
+    h_bf, h_32 = feats(N, 128, bf16), feats(N, 128, f32)
+
+    def rand_pairs(e, lo=-1, hi=N + 1):
+        return [torch.randint(lo, hi, (e,), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(2)]
+
+    cases = {
+        "step 16384 x128 bf16": (*batches[0], h_bf, h_bf),
+        "step 16384 x128 f32": (*batches[0], h_32, h_32),
+        "test 51200 x128 bf16": (*test_pairs, h_bf, h_bf),
+        "ragged 16384 x33 bf16": (*rand_pairs(16384), feats(N, 33, bf16),
+                                  feats(N, 33, bf16)),
+        "ragged 16384 x1 f32": (*rand_pairs(16384), feats(N, 1, f32),
+                                feats(N, 1, f32)),
+        "one edge x128 f32": (*rand_pairs(1, 0, N), h_32, feats(N, 128, f32)),
+    }
+    k2_err = 0.0
+    for name, args in cases.items():
+        before = hk.LAUNCHES["sddmm"]
+        got = hk.sddmm(*args)
+        assert hk.LAUNCHES["sddmm"] == before + 1, name
+        err = check(name, got, hk.sddmm_reference(*args), K2_TOL)
+        k2_err = max(k2_err, err)
+        phase("i_k2_check", case=name, max_abs_err=err)
+    step_args = cases["step 16384 x128 bf16"]
+    k2_time = time_in_turns(lambda: hk.sddmm_reference(*step_args),
+                            lambda: hk.sddmm(*step_args))
+    phase("i_k2_time", case="step 16384 x128 bf16", **k2_time)
+
+    # (j) the main path: `train_collab` at the full config for seeds 0-2.
+    # The launch counts are zeroed just before and read just after each run.
+    launches = None
+    for seed in (0, 1, 2):
+        for k in hk.LAUNCHES:
+            hk.LAUNCHES[k] = 0
+        res = gs.train_collab(dataclasses.replace(cfg, seed=seed), device=dev,
+                              verbose=False)
+        counts = dict(hk.LAUNCHES)
+        if seed == 0:
+            launches = counts
+        assert set(res) == GCN_KEYS, sorted(res)
+        assert res["loss_decreased"], res
+        assert res["test_auc"] >= GCN_AUC_FLOOR, res
+        assert counts["spmm_bucketed"] > 0 and counts["sddmm"] > 0, counts
+        phase("j_gcn_train", seed=seed, launches=counts, **res)
+
+    # (k) the same steps on the kernels and on their plain versions, in
+    # turns (kernel, plain, plain, kernel), from the same initial params;
+    # then a torch.profiler trace of 10 steps of each
+    def plain_score(src, dst, h):
+        return hk.sddmm_reference(src, dst, h, h).to(h.dtype)
+
+    paths = {"kernel": (spmm.spmm_bucketed_sym, sd.sddmm_coo),
+             "plain": (spmm.spmm_bucketed_sym_reference, plain_score)}
+    turns = []
+    for name in ("kernel", "plain", "plain", "kernel"):
+        params = gs.init_params(cfg, torch.Generator().manual_seed(cfg.seed),
+                                dev)
+        turns.append(gs.train_and_score(cfg, problem, ops, params, dev,
+                                        *paths[name]))
+    rate = [cfg.steps / r["train_seconds"] for r in turns]
+    assert turns[1]["loss_decreased"], turns[1]
+    assert abs(turns[1]["test_auc"] - turns[0]["test_auc"]) < 0.01, turns
+    profiles = {}
+    for name, (agg, score) in paths.items():
+        params = gs.init_params(cfg, torch.Generator().manual_seed(cfg.seed),
+                                dev)
+        opt = gs.adam(params, cfg.learning_rate)
+        gs.train_steps(params, opt, batches[:2], ops, cfg, agg, score)
+        torch.cuda.synchronize()
+        profiles[name] = step_profile(
+            lambda: gs.train_steps(params, opt, batches[2:12], ops, cfg, agg,
+                                   score), 10)
+    busy = {"kernel": profiles["kernel"]["device_ms_per_step"]
+            * (rate[0] + rate[3]) / 2 / 1e3,
+            "plain": profiles["plain"]["device_ms_per_step"]
+            * (rate[1] + rate[2]) / 2 / 1e3}
+    phase("k_gcn_turns", steps=cfg.steps,
+          steps_per_s=(rate[0] + rate[3]) / 2,
+          plain_steps_per_s=(rate[1] + rate[2]) / 2,
+          steps_per_s_kernel_plain_plain_kernel=rate,
+          test_auc_kernel_plain_plain_kernel=[r["test_auc"] for r in turns],
+          loss_last_quarter_kernel_plain=[turns[0]["loss_last_quarter"],
+                                          turns[1]["loss_last_quarter"]],
+          busy_share=busy, profile=profiles)
+
+    # (l) the entry point a user calls, in this process
+    out = io.StringIO()
+    before = dict(hk.LAUNCHES)
+    with contextlib.redirect_stdout(out):
+        cli.main(["scale", "--family", "gcn", "--steps", "8"])
+    lines = out.getvalue().strip().splitlines()
+    res = json.loads(lines[-1])
+    assert set(res) == GCN_KEYS, sorted(res)
+    assert res["steps"] == 8 and res["nodes"] == N
+    assert np.isfinite(res["loss_first_quarter"]) and 0 <= res["test_auc"] <= 1
+    assert all(hk.LAUNCHES[k] > before[k] for k in ("spmm_bucketed", "sddmm"))
+    phase("l_cli_scale", printed=lines[:-1], **res)
+
+    return {"launches": launches, "k3_err": k3_err, "k3_time": k3_time[128],
+            "k2_err": k2_err, "k2_time": k2_time}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -85,15 +338,19 @@ def main():
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, python=sys.version.split()[0])
 
-    # (b) build K1 from the sources in this checkout
+    # (b) build K1, K3 and K2 from the sources in this checkout, one nvcc
+    # per source, all at once
+    kernel_names = ("spmm_ell", "spmm_bucketed", "sddmm")
     t0 = time.perf_counter()
-    build.library("spmm_ell")
-    phase("b_build", kernel="spmm_ell", nvcc=build.nvcc_path(),
+    build.libraries(kernel_names)
+    phase("b_build", kernels=kernel_names, nvcc=build.nvcc_path(),
           flags=" ".join(build.NVCC_FLAGS),
-          library=str(build.library_path("spmm_ell").relative_to(os.getcwd())),
+          libraries=[str(build.library_path(k).relative_to(os.getcwd()))
+                     for k in kernel_names],
           seconds=round(time.perf_counter() - t0, 3))
-    for line in build.BUILD_LOGS.get("spmm_ell", "").splitlines():
-        print(f"  nvcc: {line}")
+    for k in kernel_names:
+        for line in build.BUILD_LOGS.get(k, "").splitlines():
+            print(f"  nvcc {k}: {line}")
 
     # the slice's data; the host negative sampler's C++ library is built by
     # the data builder on first use (numpy fallback when that build fails)
@@ -149,20 +406,9 @@ def main():
     for name in ("train[620,114]x24", "train[620,114]x16"):
         args = cases[name]
 
-        def plain():
-            return hk.spmm_ell_reference(*args)
-
-        def kernel():
-            return hk.spmm_ell(*args)
-
-        # plain, kernel, kernel, plain: both see the same warm card
-        dev_ms = [kernel_ms(f) for f in (plain, kernel, kernel, plain)]
-        call_ms = [cuda_ms(f) for f in (plain, kernel, kernel, plain)]
-        timing[name] = {"ms": (dev_ms[1] + dev_ms[2]) / 2,
-                        "plain_ms": (dev_ms[0] + dev_ms[3]) / 2}
-        phase("c_k1_time", case=name, **timing[name],
-              device_ms_plain_kernel_kernel_plain=dev_ms,
-              per_call_ms_plain_kernel_kernel_plain=call_ms)
+        timing[name] = time_in_turns(lambda: hk.spmm_ell_reference(*args),
+                                     lambda: hk.spmm_ell(*args))
+        phase("c_k1_time", case=name, **timing[name])
 
     # (d) kernel path against plain path: published-best architecture,
     # dropouts 0, same init. lr 1e-3: at 1e-2 Adam turns the f32-noise
@@ -191,20 +437,20 @@ def main():
           launches_ell=res_d["ell"]["launches"])
 
     # (e) the slice: 200 epochs, reference dropouts, 1-WL on K1. The launch
-    # counts are zeroed just before and read just after this run.
+    # counts are zeroed just before and read just after this run; K1 is the
+    # one kernel of this path.
     E_e = 200
     cfg_e = m.TwoWLConfig(max_degree=data.max_degree, agg_1wl="ell")
     run_e = dataclasses.replace(run, epochs=E_e)
     for k in hk.LAUNCHES:
         hk.LAUNCHES[k] = 0
     res_e = tp.train_routine_fused(data, cfg_e, run_e, dev)
-    launches = dict(hk.LAUNCHES)
+    launches_e = dict(hk.LAUNCHES)
     assert np.isfinite(res_e["loss_history"]).all()
     assert res_e["history"].shape == (E_e,)
     assert res_e["best_val"] >= VAL_AUC_FLOOR, res_e["best_val"]
     assert 0.0 <= res_e["test_auc"] <= 1.0
-    missing = [k for k, n in launches.items() if n == 0]
-    assert not missing, f"kernels of the path never launched: {missing}"
+    assert launches_e["spmm_ell"] > 0, f"K1 never launched: {launches_e}"
     # the same run on the plain aggregation, in turns (ell, plan, plan, ell)
     # so both see the same warm card and host
     turns = [res_e] + [tp.train_routine_fused(
@@ -212,7 +458,7 @@ def main():
         for agg in ("plan", "plan", "ell")]
     rate = [E_e / r["train_seconds"] for r in turns]
     phase("e_slice", epochs=E_e, best_val=res_e["best_val"],
-          test_auc=res_e["test_auc"], launches=launches,
+          test_auc=res_e["test_auc"], launches=launches_e,
           epochs_per_s=(rate[0] + rate[3]) / 2,
           plan_epochs_per_s=(rate[1] + rate[2]) / 2,
           epochs_per_s_ell_plan_plan_ell=rate,
@@ -242,16 +488,23 @@ def main():
               launches=hk.LAUNCHES["spmm_ell"] - before,
               record=lines[0])
 
-    print(json.dumps({"kernels": [{
-        "name": "spmm_ell",
-        "route": "cuda",
-        "source": "linkpred_tpu_torch/csrc/spmm_ell.cu",
-        "replaces": "linkpred_tpu/ops/pallas_kernels.py:68",
-        "launches": launches["spmm_ell"],
-        "max_abs_err": max_err,
-        "ms": timing["train[620,114]x24"]["ms"],
-        "plain_ms": timing["train[620,114]x24"]["plain_ms"],
-    }]}))
+    gcn = gcn_phases(dev, hk)
+
+    def row(name, source, replaces, launches, err, times):
+        return {"name": name, "route": "cuda",
+                "source": f"linkpred_tpu_torch/csrc/{source}",
+                "replaces": f"linkpred_tpu/ops/pallas_kernels.py:{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": times["ms"],
+                "plain_ms": times["plain_ms"]}
+
+    print(json.dumps({"kernels": [
+        row("spmm_ell", "spmm_ell.cu", 68, launches_e["spmm_ell"], max_err,
+            timing["train[620,114]x24"]),
+        row("spmm_bucketed", "spmm_bucketed.cu", 249,
+            gcn["launches"]["spmm_bucketed"], gcn["k3_err"], gcn["k3_time"]),
+        row("sddmm", "sddmm.cu", 144, gcn["launches"]["sddmm"],
+            gcn["k2_err"], gcn["k2_time"]),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

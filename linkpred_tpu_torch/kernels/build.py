@@ -3,8 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for Hopper (`sm_90a`) into its own shared library, which is loaded with
 `ctypes`: no PyTorch headers, so a build takes seconds. Libraries go to
-`build/kernels/` at the root of the checkout, keyed by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is not.
+`build/kernels/` at the root of the checkout, keyed by a hash of the source,
+the shared headers `csrc/*.cuh` and the flags, so an edited source is rebuilt
+and an unchanged one is not. `libraries(names)` runs one `nvcc` per source,
+all at once.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine need not have `nvcc`.
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -46,9 +49,10 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where `csrc/<name>.cu` is built to: the name carries a hash of the
-    source and the flags."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    source, the shared headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.name.encode() + src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -78,3 +82,11 @@ def library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _LIBRARIES[name] = lib
     return lib
+
+
+def libraries(names) -> dict[str, ctypes.CDLL]:
+    """`library(name)` for each of `names`, the builds run concurrently (one
+    `nvcc` process per source). Raises the first build error."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(library, names)))

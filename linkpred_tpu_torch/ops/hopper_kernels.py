@@ -6,6 +6,10 @@ version only for tensors that lie on the CPU (the tests); for CUDA tensors it
 launches the kernel or raises, with no fallback. `LAUNCHES` counts the
 kernel launches of each wrapper, so a run can show that it went through the
 kernel.
+
+    K1 spmm_ell       csrc/spmm_ell.cu       ELL SpMM, f32
+    K3 spmm_bucketed  csrc/spmm_bucketed.cu  bucketed ELL SpMM, f32 or bf16
+    K2 sddmm          csrc/sddmm.cu          per-edge dot products -> f32
 """
 
 from __future__ import annotations
@@ -17,7 +21,80 @@ import torch
 
 from linkpred_tpu_torch.kernels import build
 
-LAUNCHES = {"spmm_ell": 0}
+LAUNCHES = {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0}
+
+# dtype codes of the kernels templated on the feature type
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FEATURE_DTYPES = tuple(_DTYPE_CODES)
+MAX_BUCKETS = 64  # kMaxBuckets of csrc/spmm_bucketed.cu
+_INT32_MAX = 2**31 - 1
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check_cuda(kernel: str, device: torch.device, operands) -> None:
+    """Raise unless each `(name, tensor, dtypes, ndim)` is a contiguous
+    CUDA tensor on `device` with one of `dtypes` and `ndim` dimensions."""
+    for name, t, dtypes, ndim in operands:
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{kernel}: {name} on {t.device}, x on {device}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, needs "
+                            f"{' or '.join(map(str, dtypes))}")
+        if t.dim() != ndim or not t.is_contiguous():
+            raise ValueError(
+                f"{kernel}: {name} must be {ndim}-D and contiguous, got shape "
+                f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def _check_int32_range(kernel: str, *sizes: int) -> None:
+    if max(sizes, default=0) > _INT32_MAX:
+        raise ValueError(f"{kernel}: a dimension above the kernel's int32 range")
+
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# kernel -> (C entry point of csrc/<kernel>.cu, its argument types: pointers
+# and the stream as void*)
+_ENTRY_POINTS = {
+    "spmm_ell": ("spmm_ell_f32", [_P] * 4 + [_I64] * 4 + [_P]),
+    "spmm_bucketed": ("spmm_bucketed", [_I32] + [_P] * 5 + [_I64] * 4
+                      + [_P, _P]),
+    "sddmm": ("sddmm", [_I32] + [_P] * 5 + [_I64] * 4 + [_P]),
+}
+
+
+@functools.cache
+def _entry(name: str):
+    """`csrc/<name>.cu` built and loaded: its launch function and its
+    `<name>_error_string`, with their types declared."""
+    lib = build.library(name)
+    symbol, argtypes = _ENTRY_POINTS[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    return fn, err
+
+
+def _launch(name: str, *args) -> None:
+    """Launch kernel `name` with `args` (the stream last) and count the
+    launch; raise with CUDA's message when it was refused."""
+    fn, err = _entry(name)
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {err(rc).decode()}")
+    LAUNCHES[name] += 1
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: ELL SpMM
+# ---------------------------------------------------------------------------
 
 
 def spmm_ell_reference(nbr: torch.Tensor, w: torch.Tensor,
@@ -34,17 +111,6 @@ def spmm_ell_reference(nbr: torch.Tensor, w: torch.Tensor,
     return contrib.sum(dim=1, dtype=torch.float32)
 
 
-@functools.cache
-def _spmm_ell_lib() -> ctypes.CDLL:
-    lib = build.library("spmm_ell")
-    lib.spmm_ell_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
-        ctypes.c_void_p]
-    lib.spmm_ell_f32.restype = ctypes.c_int
-    lib.spmm_ell_error_string.argtypes = [ctypes.c_int]
-    lib.spmm_ell_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def spmm_ell(nbr: torch.Tensor, w: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """K1, the ELL SpMM `out[i, :] = sum_d w[i, d] * x[nbr[i, d], :]`.
@@ -52,35 +118,136 @@ def spmm_ell(nbr: torch.Tensor, w: torch.Tensor,
     `nbr` [M, D] int32, `w` [M, D] float32, `x` [NX, F] float32 with any row
     count -> [M, F] float32. CUDA tensors run `csrc/spmm_ell.cu` (built at
     first use); CPU tensors run `spmm_ell_reference`."""
-    if x.device.type == "cpu" and nbr.device.type == "cpu" \
-            and w.device.type == "cpu":
+    if _on_cpu(nbr, w, x):
         return spmm_ell_reference(nbr, w, x)
-    for name, t, dtype in (("nbr", nbr, torch.int32), ("w", w, torch.float32),
-                           ("x", x, torch.float32)):
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"spmm_ell: {name} on {t.device}, x on {x.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"spmm_ell: {name} is {t.dtype}, needs {dtype}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(
-                f"spmm_ell: {name} must be 2-D and contiguous, got shape "
-                f"{tuple(t.shape)} strides {t.stride()}")
+    _check_cuda("spmm_ell", x.device, (
+        ("nbr", nbr, (torch.int32,), 2), ("w", w, (torch.float32,), 2),
+        ("x", x, (torch.float32,), 2)))
     if nbr.shape != w.shape:
         raise ValueError(f"spmm_ell: nbr {tuple(nbr.shape)} != w {tuple(w.shape)}")
     m, d = nbr.shape
     nx, f = x.shape
-    if max(m, d, nx, f) >= 2**31:
-        raise ValueError("spmm_ell: a dimension above the kernel's int32 range")
+    _check_int32_range("spmm_ell", m, d, nx, f)
     out = torch.empty((m, f), dtype=torch.float32, device=x.device)
     if m == 0 or f == 0:
         return out
-    lib = _spmm_ell_lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.spmm_ell_f32(nbr.data_ptr(), w.data_ptr(), x.data_ptr(),
-                              out.data_ptr(), m, d, nx, f, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"spmm_ell launch failed: {lib.spmm_ell_error_string(rc).decode()}")
-    LAUNCHES["spmm_ell"] += 1
+        _launch("spmm_ell", nbr.data_ptr(), w.data_ptr(), x.data_ptr(),
+                out.data_ptr(), m, d, nx, f, _stream(x.device))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: bucketed ELL SpMM
+# ---------------------------------------------------------------------------
+
+
+def spmm_bucketed_reference(x: torch.Tensor, inv_perm: torch.Tensor,
+                            bucket_shapes: tuple, nbr: torch.Tensor,
+                            w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K3, the reference's `spmm_bucketed`: per bucket of
+    `(rows, width)` slots, `agg[r] = sum_d round(w[r, d]) * x[nbr[r, d]]`
+    with the weight rounded to `x.dtype` and the sum in f32; then the
+    aggregates, with one zero row appended, are gathered by `inv_perm`
+    [N] and rounded to `x.dtype` once. A slot whose weight is 0 or whose
+    index lies outside `[0, x.shape[0])` contributes nothing."""
+    nx, f = x.shape
+    keep = (nbr >= 0) & (nbr < nx) & (w != 0)
+    idx = torch.where(keep, nbr, 0).long()
+    wr = torch.where(keep, w, 0.0).to(x.dtype).float()
+    parts, s0 = [], 0
+    for rows, width in bucket_shapes:
+        s1 = s0 + rows * width
+        g = x.index_select(0, idx[s0:s1]).reshape(rows, width, f).float()
+        parts.append(torch.einsum("nd,ndf->nf",
+                                  wr[s0:s1].reshape(rows, width), g))
+        s0 = s1
+    parts.append(torch.zeros((1, f), dtype=torch.float32, device=x.device))
+    return torch.cat(parts).index_select(0, inv_perm.long()).to(x.dtype)
+
+
+def spmm_bucketed(x: torch.Tensor, inv_perm: torch.Tensor,
+                  bucket_shapes: tuple, nbr: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """K3, the bucketed ELL SpMM with its output assembly, in one launch.
+
+    `x` [NX, F] float32 or bfloat16, `inv_perm` [N] int32 (each output
+    row's row among the buckets' concatenated rows; their count means the
+    zero row), `bucket_shapes` a host tuple of `(rows, width)`, `nbr` [S]
+    int32 and `w` [S] float32 the buckets' slots concatenated in order ->
+    [N, F] of `x.dtype`. CUDA tensors run `csrc/spmm_bucketed.cu` (built at
+    first use); CPU tensors run `spmm_bucketed_reference`."""
+    if _on_cpu(x, inv_perm, nbr, w):
+        return spmm_bucketed_reference(x, inv_perm, bucket_shapes, nbr, w)
+    _check_cuda("spmm_bucketed", x.device, (
+        ("x", x, _FEATURE_DTYPES, 2),
+        ("inv_perm", inv_perm, (torch.int32,), 1),
+        ("nbr", nbr, (torch.int32,), 1), ("w", w, (torch.float32,), 1)))
+    if len(bucket_shapes) > MAX_BUCKETS:
+        raise ValueError(f"spmm_bucketed: {len(bucket_shapes)} buckets, the "
+                         f"kernel takes at most {MAX_BUCKETS}")
+    n_slots = sum(r * wd for r, wd in bucket_shapes)
+    if nbr.shape[0] != n_slots or w.shape[0] != n_slots:
+        raise ValueError(f"spmm_bucketed: buckets hold {n_slots} slots, nbr "
+                         f"{nbr.shape[0]}, w {w.shape[0]}")
+    n = inv_perm.shape[0]
+    nx, f = x.shape
+    _check_int32_range("spmm_bucketed", n, nx, f,
+                       sum(r for r, _ in bucket_shapes),
+                       *(wd for _, wd in bucket_shapes))
+    out = torch.empty((n, f), dtype=x.dtype, device=x.device)
+    if n == 0 or f == 0:
+        return out
+    shapes = (ctypes.c_int64 * (2 * len(bucket_shapes)))(
+        *(v for shape in bucket_shapes for v in shape))
+    with torch.cuda.device(x.device):
+        _launch("spmm_bucketed", _DTYPE_CODES[x.dtype], x.data_ptr(),
+                inv_perm.data_ptr(), nbr.data_ptr(), w.data_ptr(),
+                out.data_ptr(), n, nx, f, len(bucket_shapes),
+                ctypes.addressof(shapes), _stream(x.device))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: SDDMM
+# ---------------------------------------------------------------------------
+
+
+def sddmm_reference(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
+                    y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K2: `out[e] = sum_f x[src[e], f] * y[dst[e], f]`, summed
+    in f32 -> [E] float32; 0 where an index lies outside its table."""
+    keep = (src >= 0) & (src < x.shape[0]) & (dst >= 0) & (dst < y.shape[0])
+    xs = x.index_select(0, torch.where(keep, src, 0).long()).float()
+    yd = y.index_select(0, torch.where(keep, dst, 0).long()).float()
+    return torch.where(keep, (xs * yd).sum(dim=1), 0.0)
+
+
+def sddmm(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
+          y: torch.Tensor) -> torch.Tensor:
+    """K2, per-edge dot products of endpoint features.
+
+    `src`, `dst` [E] int32, `x` [NX, F] and `y` [NY, F] both float32 or both
+    bfloat16 -> [E] float32 (sums in f32), as the TPU kernel returns. CUDA
+    tensors run `csrc/sddmm.cu` (built at first use); CPU tensors run
+    `sddmm_reference`."""
+    if _on_cpu(src, dst, x, y):
+        return sddmm_reference(src, dst, x, y)
+    _check_cuda("sddmm", x.device, (
+        ("src", src, (torch.int32,), 1), ("dst", dst, (torch.int32,), 1),
+        ("x", x, _FEATURE_DTYPES, 2), ("y", y, (x.dtype,), 2)))
+    if src.shape != dst.shape or x.shape[1] != y.shape[1]:
+        raise ValueError(f"sddmm: src {tuple(src.shape)}, dst "
+                         f"{tuple(dst.shape)}, x {tuple(x.shape)}, y "
+                         f"{tuple(y.shape)}")
+    e = src.shape[0]
+    (nx, f), ny = x.shape, y.shape[0]
+    _check_int32_range("sddmm", e, nx, ny, f)
+    out = torch.empty((e,), dtype=torch.float32, device=x.device)
+    if e == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _launch("sddmm", _DTYPE_CODES[x.dtype], src.data_ptr(),
+                dst.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                e, nx, ny, f, _stream(x.device))
     return out

@@ -1,5 +1,5 @@
-"""Card-only checks of the port: kernel K1 and the paths through it on a CUDA
-device, against their plain PyTorch versions on the same card.
+"""Card-only checks of the port: kernels K1, K3 and K2 and the paths through
+them on a CUDA device, against their plain PyTorch versions on the same card.
 
 Every test here carries the `cuda` marker and skips without a card. The file
 imports no JAX, so it also runs on a machine with a card and no JAX:
@@ -9,7 +9,14 @@ imports no JAX, so it also runs on a machine with a card and no JAX:
 (`--noconftest`: the suite's conftest imports JAX.) Tolerances: K1 against
 its plain version rtol 1e-5, atol 1e-5 (f32 sums of up to 120 products of
 normal values reach magnitude ~40, where two summation orders differ by
-~2e-5 absolute); rtol 1e-5, atol 1e-6 for the layers above it.
+~2e-5 absolute); rtol 1e-5, atol 1e-6 for the layers above it. K3 and K2
+in f32: rtol 1e-5, atol 1e-5, as K1. K3 in bf16: kernel and plain version
+both sum in f32 and round once to bf16, in another order, so they differ by
+at most one bf16 ulp of the output: rtol 2^-7 (8e-3), atol 1e-6. K2 returns
+f32 sums of exact products of bf16 values: rtol 1e-5, atol 1e-4 (sums of
+128 products reach ~40). A GCN training step on the kernels against the
+plain versions in f32: loss and gradients rtol 1e-4, atol 1e-6 (four
+aggregations and a score, each summed in another order).
 """
 
 import dataclasses
@@ -22,7 +29,10 @@ from linkpred_tpu.data import io
 from linkpred_tpu.data.twowl import build_twowl_data
 from linkpred_tpu_torch.models import twowl as m
 from linkpred_tpu_torch.ops import hopper_kernels as hk
+from linkpred_tpu_torch.ops import sddmm as sd
 from linkpred_tpu_torch.ops import segment as seg
+from linkpred_tpu_torch.ops import spmm
+from linkpred_tpu_torch.pipelines import gcn_scale as gs
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +142,168 @@ def test_eval_scores_ell_matches_plan(cuda, fb_data):
     assert hk.LAUNCHES["spmm_ell"] == before + cfg.depth1
     ref = m.eval_scores(params, deg, arrays, cfg)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K3 (bucketed SpMM) and K2 (SDDMM): the GCN slice
+# ---------------------------------------------------------------------------
+
+# the GCN slice's config at a twelfth of its node count: every bucket width
+# of the full config (2-64) occurs, at the full feature widths
+GCN_CFG = gs.ScaleGCNConfig(nodes=20_000, edges=110_000, batch_edges=1024,
+                            dtype="f32")
+FEATURE_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+               torch.bfloat16: dict(rtol=2**-7, atol=1e-6)}
+
+
+@pytest.fixture(scope="module")
+def gcn_problem():
+    return gs.build_problem(GCN_CFG)
+
+
+def _layouts():
+    """Graphs beside the slice's: no edges at all, and a ring (one bucket)."""
+    empty = spmm.BucketedEll.build(np.zeros((9, 1), np.int32),
+                                   np.zeros((9, 1), bool))
+    n = 50
+    ring = np.stack([(np.arange(n) - 1) % n, (np.arange(n) + 1) % n], 1)
+    one = spmm.BucketedEll.build(ring.astype(np.int32),
+                                 np.ones((n, 2), bool),
+                                 np.full((n, 2), 0.5, np.float32))
+    assert len(empty.buckets) == 0 and len(one.buckets) == 1
+    return {"no edges": empty, "one bucket": one}
+
+
+def _x(rows, f, dtype, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((rows, f), generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("f", [64, 128, 33, 1])
+def test_spmm_bucketed_matches_reference(cuda, gcn_problem, f, dtype):
+    lay = spmm.BucketedEll.from_graph(gcn_problem[0])
+    assert [nb.shape[1] for _, nb, _ in lay.buckets] == [
+        2, 4, 6, 8, 12, 16, 24, 32, 48, 64]
+    ops = lay.operands(cuda)
+    x = _x(lay.num_nodes, f, dtype, cuda, f)
+    before = hk.LAUNCHES["spmm_bucketed"]
+    got = hk.spmm_bucketed(x, *ops)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["spmm_bucketed"] == before + 1
+    ref = hk.spmm_bucketed_reference(x, *ops)
+    assert got.dtype == dtype and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(), **FEATURE_TOL[dtype])
+    assert (got[torch.from_numpy(gcn_problem[0].degree == 0).to(cuda)] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("name", ["no edges", "one bucket"])
+def test_spmm_bucketed_small_layouts(cuda, name, dtype):
+    lay = _layouts()[name]
+    ops = lay.operands(cuda)
+    x = _x(lay.num_nodes, 7, dtype, cuda)
+    got = hk.spmm_bucketed(x, *ops)
+    ref = hk.spmm_bucketed_reference(x, *ops)
+    torch.testing.assert_close(got.float(), ref.float(), **FEATURE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_spmm_bucketed_sym_grad_matches_plain(cuda, gcn_problem, dtype):
+    ops = spmm.BucketedEll.from_graph(gcn_problem[0]).operands(cuda)
+    n = GCN_CFG.nodes
+    x = _x(n, 64, dtype, cuda, 1)
+    t = _x(n, 64, dtype, cuda, 2)
+    grads = []
+    for sym in (spmm.spmm_bucketed_sym, spmm.spmm_bucketed_sym_reference):
+        xx = x.clone().requires_grad_()
+        (sym(xx, n, ops).float() * t.float()).sum().backward()
+        grads.append(xx.grad)
+    torch.testing.assert_close(grads[0].float(), grads[1].float(),
+                               **FEATURE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("e,f", [(16_384, 128), (16_384, 33), (1, 128),
+                                 (51_200, 1)])
+def test_sddmm_matches_reference(cuda, e, f, dtype):
+    n = 20_000
+    gen = torch.Generator(device=cuda).manual_seed(e + f)
+    src = torch.randint(-1, n + 1, (e,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    dst = torch.randint(0, n, (e,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    x, y = _x(n, f, dtype, cuda, 1), _x(n, f, dtype, cuda, 2)
+    before = hk.LAUNCHES["sddmm"]
+    got = hk.sddmm(src, dst, x, y)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["sddmm"] == before + 1
+    ref = hk.sddmm_reference(src, dst, x, y)
+    assert got.dtype == torch.float32 and got.shape == (e,)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+
+
+def test_sddmm_no_edges(cuda):
+    x = _x(5, 8, torch.float32, cuda)
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = hk.LAUNCHES["sddmm"]
+    assert hk.sddmm(empty, empty, x, x).shape == (0,)
+    assert hk.LAUNCHES["sddmm"] == before
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    lay = _layouts()["one bucket"]
+    inv, shapes, nbr, w = lay.operands(cuda)
+    x = _x(lay.num_nodes, 8, torch.float32, cuda)
+    idx = torch.arange(4, dtype=torch.int32, device=cuda)
+    before = dict(hk.LAUNCHES)
+    with pytest.raises(TypeError):
+        hk.spmm_bucketed(x.double(), inv, shapes, nbr, w)
+    with pytest.raises(TypeError):
+        hk.spmm_bucketed(x, inv.long(), shapes, nbr, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.spmm_bucketed(x.t().contiguous().t(), inv, shapes, nbr, w)
+    with pytest.raises(ValueError):
+        hk.spmm_bucketed(x, inv.cpu(), shapes, nbr, w)
+    with pytest.raises(ValueError, match="slots"):
+        hk.spmm_bucketed(x, inv, shapes, nbr[:-1].contiguous(), w)
+    with pytest.raises(TypeError):
+        hk.sddmm(idx.long(), idx, x, x)
+    with pytest.raises(TypeError):
+        hk.sddmm(idx, idx, x, x.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        hk.sddmm(idx, idx, x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.sddmm(idx, idx, x.t().contiguous().t(), x)
+    with pytest.raises(ValueError):
+        hk.sddmm(idx, idx.cpu(), x, x)
+    assert hk.LAUNCHES == before
+
+
+def test_gcn_step_on_kernels_matches_plain(cuda, gcn_problem):
+    """One step of the slice (f32) on K3 and K2 against the same step on
+    their plain versions: same loss and gradients, and both launch counts
+    move only on the kernel path."""
+    g, train_pos, _, _ = gcn_problem
+    ops = spmm.BucketedEll.from_graph(g).operands(cuda)
+    batch = torch.from_numpy(gs.batch_schedule(GCN_CFG, train_pos)[0]).to(cuda)
+    plain = (spmm.spmm_bucketed_sym_reference,
+             lambda s, d, h: hk.sddmm_reference(s, d, h, h).to(h.dtype))
+    results = []
+    for agg, score in ((spmm.spmm_bucketed_sym, sd.sddmm_coo), plain):
+        params = gs.init_params(GCN_CFG, torch.Generator().manual_seed(0),
+                                cuda)
+        before = dict(hk.LAUNCHES)
+        loss = gs.loss_fn(params, batch, ops, GCN_CFG, agg, score)
+        loss.backward()
+        torch.cuda.synchronize()
+        moved = {k: hk.LAUNCHES[k] - before[k] for k in before}
+        results.append((loss.detach(), {k: p.grad for k, p in params.items()},
+                         moved))
+    (l_k, g_k, moved_k), (l_p, g_p, moved_p) = results
+    assert moved_k == {"spmm_ell": 0, "spmm_bucketed": 4, "sddmm": 1}
+    assert moved_p == {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0}
+    torch.testing.assert_close(l_k, l_p, rtol=1e-4, atol=1e-6)
+    for k in g_k:
+        torch.testing.assert_close(g_k[k], g_p[k], rtol=1e-4, atol=1e-6,
+                                   msg=k)

@@ -32,13 +32,39 @@ _SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_runs_without_jax():
+# the GCN slice: its host builders import `benchmarks.scaling` (a namespace
+# package at the root of the checkout) and `linkpred_tpu.data`, both JAX-free
+_GCN_SCRIPT = textwrap.dedent("""
+    import sys
+    import numpy as np
+    from linkpred_tpu_torch.pipelines import gcn_scale as gs
+
+    cfg = gs.ScaleGCNConfig(nodes=600, edges=2400, steps=4, batch_edges=64,
+                            emb_dim=8, hidden=16, max_degree=16)
+    res = gs.train_collab(cfg, device="cpu", verbose=False)
+    assert np.isfinite(res["loss_first_quarter"]), res
+    assert 0.0 <= res["test_auc"] <= 1.0
+    assert "benchmarks.scaling" in sys.modules
+    assert "jax" not in sys.modules and "optax" not in sys.modules
+    print("JAX-FREE OK")
+""")
+
+
+def _run_without_jax(script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "JAX-FREE OK" in proc.stdout
+
+
+def test_port_runs_without_jax():
+    _run_without_jax(_SCRIPT)
+
+
+def test_gcn_slice_runs_without_jax():
+    _run_without_jax(_GCN_SCRIPT)
 
 
 def test_no_card_raises(monkeypatch, tmp_path):
@@ -53,4 +79,16 @@ def test_no_card_raises(monkeypatch, tmp_path):
         cuda_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--quiet", "twowl", "--epochs", "1", "--trials", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--quiet", "scale", "--family", "gcn", "--steps", "1"])
+    assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("family", ["seal", "twowl"])
+def test_scale_families_of_later_slices_raise(family, tmp_path, monkeypatch):
+    from linkpred_tpu_torch import cli
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="slice"):
+        cli.main(["scale", "--family", family])
     assert list(tmp_path.iterdir()) == []

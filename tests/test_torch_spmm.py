@@ -1,0 +1,317 @@
+"""Parity of the port's bucketed SpMM (`linkpred_tpu_torch.ops.spmm`) and
+SDDMM (`ops.sddmm`) with the JAX package, and of the plain versions of
+kernels K3 and K2 with the TPU kernels in interpret mode.
+
+Inputs are made with numpy from a seed and fed to both packages.
+Tolerances: host structures are array-equal. f32 results: rtol 1e-5, atol
+1e-6 (sums of at most 64 products taken in another order). bf16 results:
+both sides sum in f32 and round once to bf16, so they differ by at most one
+bf16 ulp where the two f32 sums straddle a rounding boundary: rtol 8e-3
+(2^-7), atol 1e-2 for sums that cancel to near 0. The Pallas kernels' own
+test holds them to 1e-4 against numpy; so do these.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from linkpred_tpu.data.graph import Graph
+from linkpred_tpu.ops import pallas_kernels as jpk
+from linkpred_tpu.ops import sddmm as jsd
+from linkpred_tpu.ops import spmm as jspmm
+from linkpred_tpu_torch.ops import hopper_kernels as hk
+from linkpred_tpu_torch.ops import sddmm as tsd
+from linkpred_tpu_torch.ops import spmm as tspmm
+
+RTOL, ATOL = 1e-5, 1e-6
+BF16_RTOL, BF16_ATOL = 8e-3, 1e-2
+
+
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _gcn_weights(g):
+    """The GCN slice's symmetric normalisation on `g`'s ELL view."""
+    d = np.asarray(g.degree, np.float64) + 1.0
+    inv = (1.0 / np.sqrt(d)).astype(np.float32)
+    w = inv[:, None] * inv[np.asarray(g.nbr)]
+    return dataclasses.replace(g, nbr_weight=np.ascontiguousarray(w))
+
+
+def _graph(n, m, seed, isolated=0, weighted=True):
+    """Random undirected graph on `n` nodes; the last `isolated` nodes have
+    degree 0."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n - isolated, m)
+    v = rng.integers(0, n - isolated, m)
+    g = Graph.from_undirected_edges(u, v, num_nodes=n)
+    return _gcn_weights(g) if weighted else g
+
+
+def _hub_graph(seed=7, n=80, cap=6):
+    """4 hubs joined to every node plus a random tail, capped symmetrically
+    (as `tests/test_parallel.py::TestNodeShardedSymVJP`)."""
+    rng = np.random.default_rng(seed)
+    hubs = np.arange(4)
+    u = np.concatenate([np.repeat(hubs, n - 1), rng.integers(0, n, 120)])
+    v = np.concatenate([np.tile(np.arange(1, n), 4) % n,
+                        rng.integers(0, n, 120)])
+    keep = u != v
+    g = Graph.from_undirected_edges(u[keep], v[keep], num_nodes=n)
+    g = g.with_degree_cap(cap, rng=np.random.default_rng(seed), symmetric=True)
+    assert int(g.degree.max()) <= cap
+    return _gcn_weights(g)
+
+
+def _dense(g):
+    a = np.zeros((g.num_nodes, g.num_nodes), np.float64)
+    nbr, m = np.asarray(g.nbr), np.asarray(g.nbr_mask)
+    w = np.ones(nbr.shape) if g.nbr_weight is None else g.nbr_weight
+    for i in range(g.num_nodes):
+        a[i, nbr[i][m[i]]] = w[i][m[i]]
+    return a
+
+
+GRAPHS = {
+    "weighted+isolated": lambda: _graph(60, 150, 0, isolated=7),
+    "unweighted": lambda: _graph(45, 300, 1, weighted=False),
+    "hubs capped": _hub_graph,
+    "no edges": lambda: Graph.from_undirected_edges(
+        np.zeros(0, np.int64), np.zeros(0, np.int64), num_nodes=9),
+}
+
+
+# ---------------------------------------------------------------------------
+# host layout
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("min_width", [1, 2, 4])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_bucketed_ell_build_equal(name, min_width):
+    g = GRAPHS[name]()
+    lt = tspmm.BucketedEll.build(g.nbr, g.nbr_mask, g.nbr_weight, min_width)
+    lj = jspmm.BucketedEll.build(g.nbr, g.nbr_mask, g.nbr_weight, min_width)
+    assert (lt.num_nodes, lt.num_edges) == (lj.num_nodes, lj.num_edges)
+    np.testing.assert_array_equal(lt.inv_perm, lj.inv_perm)
+    assert lt.inv_perm.dtype == np.int32
+    assert len(lt.buckets) == len(lj.buckets)
+    for bt, bj in zip(lt.buckets, lj.buckets):
+        for a, b in zip(bt, bj):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_operands_flatten_the_buckets():
+    g = _graph(60, 150, 0, isolated=7)
+    lay = tspmm.BucketedEll.from_graph(g)
+    inv_perm, shapes, nbr, w = lay.operands("cpu")
+    assert inv_perm.dtype == nbr.dtype == torch.int32
+    assert w.dtype == torch.float32
+    assert shapes == tuple(nb.shape for _, nb, _ in lay.buckets)
+    np.testing.assert_array_equal(
+        nbr.numpy(), np.concatenate([nb.ravel() for _, nb, _ in lay.buckets]))
+    np.testing.assert_array_equal(
+        w.numpy(), np.concatenate([wb.ravel() for _, _, wb in lay.buckets]))
+    # degree-0 nodes map to the zero row past the concat rows
+    n_rows = sum(r for r, _ in shapes)
+    assert (inv_perm.numpy()[np.asarray(g.degree) == 0] == n_rows).all()
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("f", [1, 8, 33])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_spmm_bucketed_f32_matches_jax_and_dense(name, f):
+    g = GRAPHS[name]()
+    x = np.random.default_rng(f).standard_normal((g.num_nodes, f)).astype(
+        np.float32)
+    ops = tspmm.BucketedEll.from_graph(g).operands("cpu")
+    got = tspmm.spmm_bucketed(torch.from_numpy(x), g.num_nodes, *ops)
+    assert got.dtype == torch.float32 and got.shape == (g.num_nodes, f)
+    ref = jspmm.spmm_bucketed(jnp.asarray(x), g.num_nodes,
+                              *jspmm.BucketedEll.from_graph(g).operands())
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(_np(got), _dense(g) @ x, rtol=RTOL, atol=1e-5)
+
+
+@pytest.mark.parametrize("f", [16, 64])
+def test_spmm_bucketed_bf16_matches_jax(f):
+    g = _hub_graph()
+    x = np.random.default_rng(3).standard_normal((g.num_nodes, f)).astype(
+        np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    ops = tspmm.BucketedEll.from_graph(g).operands("cpu")
+    got = tspmm.spmm_bucketed(xt, g.num_nodes, *ops)
+    assert got.dtype == torch.bfloat16
+    ref = jspmm.spmm_bucketed(jnp.asarray(x).astype(jnp.bfloat16),
+                              g.num_nodes,
+                              *jspmm.BucketedEll.from_graph(g).operands())
+    assert ref.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
+    # against the f64 product of the bf16-rounded inputs: one rounding
+    xr = xt.float().numpy().astype(np.float64)
+    wr = torch.from_numpy(_dense(g).astype(np.float32)).to(
+        torch.bfloat16).double().numpy()
+    np.testing.assert_allclose(_np(got), wr @ xr, rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("f", [8, 33])
+def test_spmm_bucketed_reference_matches_pallas_rowdma(f):
+    """K3's plain version against the TPU kernel `spmm_rowdma_bucketed` in
+    interpret mode; that kernel takes the (ids, nbr, w) triples without
+    `inv_perm` and merges the buckets by row `.set`."""
+    g = _graph(60, 150, 0, isolated=7)
+    x = np.random.default_rng(f).standard_normal((g.num_nodes, f)).astype(
+        np.float32)
+    got = hk.spmm_bucketed_reference(
+        torch.from_numpy(x), *tspmm.BucketedEll.from_graph(g).operands("cpu"))
+    ref = jpk.spmm_rowdma_bucketed(
+        jnp.asarray(x), g.num_nodes,
+        *jspmm.BucketedEll.from_graph(g).operands()[1:])
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=RTOL, atol=ATOL)
+
+
+def test_spmm_bucketed_guards_indices_and_zero_weights():
+    """Slots outside [0, NX) or of weight 0 contribute nothing; an
+    `inv_perm` entry equal to the concat row count gives a zero row."""
+    x = torch.arange(12, dtype=torch.float32).reshape(4, 3) + 1.0
+    inv_perm = torch.tensor([0, 2, 1, 3], dtype=torch.int32)
+    shapes = ((1, 2), (2, 1))
+    nbr = torch.tensor([1, 7, -1, 3], dtype=torch.int32)
+    w = torch.tensor([2.0, 5.0, 1.0, 0.0])
+    got = hk.spmm_bucketed(x, inv_perm, shapes, nbr, w)
+    expect = torch.stack([2.0 * x[1], torch.zeros(3), torch.zeros(3),
+                          torch.zeros(3)])
+    torch.testing.assert_close(got, expect, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# gradient
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["hubs capped", "weighted+isolated"])
+def test_spmm_bucketed_sym_grad_matches_jax(name):
+    g = GRAPHS[name]()
+    a = _dense(g)
+    assert np.allclose(a, a.T)  # the symmetric VJP is right only for A == A^T
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((g.num_nodes, 8)).astype(np.float32)
+    t = rng.standard_normal((g.num_nodes, 8)).astype(np.float32)
+
+    ops_j = jspmm.BucketedEll.from_graph(g).operands()
+
+    def loss_j(xx):
+        return jnp.sum(jspmm.spmm_bucketed_sym(xx, g.num_nodes, ops_j) * t)
+
+    gj = np.asarray(jax.grad(loss_j)(jnp.asarray(x)))
+    ops = tspmm.BucketedEll.from_graph(g).operands("cpu")
+    for sym in (tspmm.spmm_bucketed_sym, tspmm.spmm_bucketed_sym_reference):
+        xt = torch.from_numpy(x).requires_grad_()
+        (sym(xt, g.num_nodes, ops) * torch.from_numpy(t)).sum().backward()
+        np.testing.assert_allclose(_np(xt.grad), gj, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(_np(xt.grad), a.T @ t, rtol=RTOL,
+                                   atol=1e-5)
+
+
+def test_spmm_bucketed_sym_bf16_grad_dtype():
+    g = _hub_graph()
+    ops = tspmm.BucketedEll.from_graph(g).operands("cpu")
+    x = torch.randn((g.num_nodes, 16), generator=torch.Generator().manual_seed(0))
+    xb = x.to(torch.bfloat16).requires_grad_()
+    out = tspmm.spmm_bucketed_sym(xb, g.num_nodes, ops)
+    out.float().sum().backward()
+    assert out.dtype == xb.grad.dtype == torch.bfloat16
+    ones = torch.ones_like(x)
+    expect = hk.spmm_bucketed_reference(ones.to(torch.bfloat16), *ops)
+    torch.testing.assert_close(xb.grad, expect, rtol=0, atol=0)
+
+
+def test_spmm_bucketed_row_count_checked():
+    g = _graph(20, 40, 0)
+    ops = tspmm.BucketedEll.from_graph(g).operands("cpu")
+    with pytest.raises(ValueError, match="rows"):
+        tspmm.spmm_bucketed(torch.zeros((20, 4)), 21, *ops)
+
+
+# ---------------------------------------------------------------------------
+# SDDMM (K2)
+# ---------------------------------------------------------------------------
+
+
+def _sddmm_inputs(n, e, f, seed):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    y = rng.standard_normal((n, f)).astype(np.float32)
+    return src, dst, x, y
+
+
+@pytest.mark.parametrize("n,e,f", [(50, 130, 24), (7, 1, 1), (40, 300, 33)])
+def test_sddmm_reference_matches_pallas_and_coo(n, e, f):
+    src, dst, x, y = _sddmm_inputs(n, e, f, e)
+    got = hk.sddmm_reference(*map(torch.from_numpy, (src, dst, x, y)))
+    assert got.dtype == torch.float32 and got.shape == (e,)
+    pallas = jpk.sddmm_pallas(*map(jnp.asarray, (src, dst, x, y)),
+                              block_edges=32, interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(pallas), rtol=1e-4,
+                               atol=1e-4)
+    coo = jsd.sddmm_coo(*map(jnp.asarray, (src, dst, x, y)))
+    np.testing.assert_allclose(_np(got), np.asarray(coo), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_sddmm_reference_guards_indices():
+    x = torch.ones((3, 4))
+    src = torch.tensor([0, 3, -1, 2], dtype=torch.int32)
+    dst = torch.tensor([1, 0, 0, 5], dtype=torch.int32)
+    torch.testing.assert_close(hk.sddmm_reference(src, dst, x, x),
+                               torch.tensor([4.0, 0.0, 0.0, 0.0]))
+
+
+@pytest.mark.parametrize("two_tables", [True, False])
+def test_sddmm_coo_grad_matches_jax(two_tables):
+    src, dst, x, y = _sddmm_inputs(30, 90, 7, 2)
+    t = np.random.default_rng(5).standard_normal(90).astype(np.float32)
+
+    def loss_j(xx, yy):
+        return jnp.sum(jsd.sddmm_coo(src, dst, xx, yy if two_tables else None)
+                       * t)
+
+    gx, gy = jax.grad(loss_j, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    xt = torch.from_numpy(x).requires_grad_()
+    yt = torch.from_numpy(y).requires_grad_()
+    out = tsd.sddmm_coo(torch.from_numpy(src), torch.from_numpy(dst), xt,
+                        yt if two_tables else None)
+    (out * torch.from_numpy(t)).sum().backward()
+    np.testing.assert_allclose(_np(xt.grad), np.asarray(gx), rtol=RTOL,
+                               atol=ATOL)
+    if two_tables:
+        np.testing.assert_allclose(_np(yt.grad), np.asarray(gy), rtol=RTOL,
+                                   atol=ATOL)
+    else:
+        assert yt.grad is None
+
+
+def test_sddmm_coo_bf16_matches_jax():
+    src, dst, x, y = _sddmm_inputs(64, 500, 128, 9)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = tsd.sddmm_coo(torch.from_numpy(src), torch.from_numpy(dst), xb)
+    assert got.dtype == torch.bfloat16
+    ref = jsd.sddmm_coo(jnp.asarray(src), jnp.asarray(dst),
+                        jnp.asarray(x).astype(jnp.bfloat16))
+    assert ref.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32),
+                               rtol=BF16_RTOL, atol=BF16_ATOL)
