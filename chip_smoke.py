@@ -5,7 +5,9 @@
 
 Builds kernels K1, K3 and K2 from `linkpred_tpu_torch/csrc/` (one nvcc per
 source, all at once), holds each against its plain PyTorch version on the
-card, and drives the port's paths through the entry points a user calls:
+card, times it beside its bound (the bytes it must move over the card's
+memory rate) and beside one PyTorch library call for the same function, and
+drives the port's paths through the entry points a user calls:
 TwoWL on fb-pages-food at the published-best widths (`train_routine_fused`,
 `run_twowl`; K1 and K3), collab-scale GCN training at the full published
 config (`train_collab`, `cli scale --family gcn`; K3 and K2), and the
@@ -49,7 +51,7 @@ SWEEP_TRIALS, SWEEP_EPOCHS = 32, 1000
 SWEEP_TEST_FLOOR, SWEEP_VAL_FLOOR = 0.85, 0.80
 TURN_EPOCHS = 100  # the sweep in turns 'ell', 'plan', 'plan', 'ell'
 REFINE_EPOCHS = 200  # phase (q)
-# the keys `linkpred_tpu.pipelines.gcn_scale.train_collab` returns
+# the keys `train_collab` returns, those of the JAX package's `train_collab`
 GCN_KEYS = {"nodes", "directed_edges", "shards", "aggregation", "steps",
             "loss_first_quarter", "loss_last_quarter", "loss_decreased",
             "test_auc", "train_seconds", "compile_seconds", "build_seconds",
@@ -58,6 +60,12 @@ GCN_KEYS = {"nodes", "directed_edges", "shards", "aggregation", "steps",
 
 def phase(step, **kv):
     print(json.dumps({"phase": step, **kv}), flush=True)
+
+
+# idle time around the timed calls of a profiler capture, and the small
+# kernels launched before and behind them (see `profiled_ms`)
+PROFILE_PAD_S = 0.02
+PROFILE_LEAD, PROFILE_TRAIL = 512, 4
 
 
 def cuda_ms(fn, iters=200, warmup=20):
@@ -76,21 +84,104 @@ def cuda_ms(fn, iters=200, warmup=20):
     return start.elapsed_time(stop) / iters
 
 
-def kernel_ms(fn, iters=50):
-    """Mean milliseconds per call that the card spends in the kernels `fn`
-    launches (sum of their durations in a torch.profiler trace)."""
+# readings of `kernel_ms` so far that rest on an estimated capture
+ESTIMATED_READINGS = [0]
+
+
+def profiled_ms(fn, iters, dropped):
+    """(ms, estimated): mean milliseconds per call that the card spends in
+    the kernels `fn` launches, the sum of their durations in one
+    torch.profiler capture over `iters` calls.
+
+    As a process goes on, a capture loses more of its first events: 5 or 6
+    after the first capture that also records the host, 22 after the second,
+    of 50, 200 and 3,450 alike and however long the capture idles before its
+    first launch. Summed and divided by `iters`, such a capture reads as a
+    faster kernel. So the capture first launches `PROFILE_LEAD` small
+    kernels that may be lost, idles `PROFILE_PAD_S`, makes the calls, idles
+    again and launches `PROFILE_TRAIL` more. The events are split where the
+    card idled for half the pad or more: the last group is the trailing
+    kernels, the one before it the calls'. A complete group holds a multiple
+    of `iters` events; a capture whose group does not is noted in `dropped`
+    and run again with twice the idle time, up to six times or until two
+    miss the same number of events. Then, if the fullest group kept at
+    least three quarters of its events, the result is an estimate, marked
+    so: the mean duration of the events kept times the events per call
+    (exact where `fn` launches one kernel, as every kernel of the port
+    does). Otherwise (None, False)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    lead = torch.zeros(32, device="cuda")
+    pad, best = PROFILE_PAD_S, []
+    for _ in range(6):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert kernels, "the profiler saw no kernel on the card"
-    return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                lead.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(pad)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+            for _ in range(PROFILE_TRAIL):
+                lead.add_(1.0)
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.time_range.elapsed_us())
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        groups, last_end = [[]], None
+        for start, duration in events:
+            if last_end is not None and start - last_end > pad * 1e6 / 2:
+                groups.append([])
+            groups[-1].append(duration)
+            last_end = start + duration
+        durations = groups[-2] if len(groups) >= 2 else []
+        if (durations and len(durations) % iters == 0
+                and len(groups[-1]) == PROFILE_TRAIL):
+            return sum(durations) / iters / 1e3, False
+        dropped.append({"events": [len(g) for g in groups], "calls": iters,
+                        "pad_s": pad})
+        same = len(durations) == len(best)
+        best = max(best, durations, key=len)
+        if same:
+            break
+        pad *= 2
+    per_call = -(-len(best) // iters)
+    if not best or len(best) < 0.75 * per_call * iters:
+        return None, False
+    dropped[-1]["estimate_from_events"] = len(best)
+    return sum(best) / len(best) * per_call / 1e3, True
+
+
+def kernel_ms(fn, iters=50):
+    """`profiled_ms` of `fn`, from two captures that agree: now and then a
+    whole capture's durations come out scaled (a kernel at half its time, or
+    1.45x, in one capture of some fifteen), so captures are run until two
+    lie within 5 % of each other, and their mean is returned. A reading that
+    took more than two captures, or an incomplete one, prints them all in a
+    `kernel_ms_captures` line (None: a capture `profiled_ms` gave up on),
+    and one that rests on an estimated capture adds one to
+    `ESTIMATED_READINGS`, which the timing phases print beside their times.
+    When eight captures hold no such pair the measurement fails, and the
+    phase with it."""
+    fn()
+    seen, dropped = [], []
+    for _ in range(8):
+        t, estimated = profiled_ms(fn, iters, dropped)
+        pair = next(((u, e) for u, e in seen if None not in (t, u)
+                     and abs(t - u) <= 0.05 * max(t, u)), None)
+        seen.append((t, estimated))
+        if pair is not None:
+            estimated = estimated or pair[1]
+            ESTIMATED_READINGS[0] += estimated
+            if len(seen) > 2 or dropped:
+                phase("kernel_ms_captures", captures=[u for u, _ in seen],
+                      used=[pair[0], t], estimated=estimated,
+                      incomplete=dropped)
+            return (pair[0] + t) / 2
+    raise AssertionError(f"kernel_ms: no two of eight captures agree: {seen}; "
+                         f"incomplete captures: {dropped}")
 
 
 def step_profile(run, steps=10):
@@ -106,8 +197,10 @@ def step_profile(run, steps=10):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         run(2, 2 + steps)
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     events = prof.events()
     host = {e.name for e in events
             if e.device_type == torch.autograd.DeviceType.CPU}
@@ -145,13 +238,228 @@ def check(name, got, ref, tol):
 def time_in_turns(plain, kernel):
     """Device ms per call (profiler kernel sums) and host-issued ms per call
     (CUDA events) of `plain` and `kernel`, run in turns plain, kernel,
-    kernel, plain so both see the same warm card."""
+    kernel, plain so both see the same warm card. `estimated_readings`
+    counts the device times that rest on an estimated capture (see
+    `kernel_ms`)."""
+    before = ESTIMATED_READINGS[0]
     dev_ms = [kernel_ms(f) for f in (plain, kernel, kernel, plain)]
     call_ms = [cuda_ms(f) for f in (plain, kernel, kernel, plain)]
     return {"ms": (dev_ms[1] + dev_ms[2]) / 2,
             "plain_ms": (dev_ms[0] + dev_ms[3]) / 2,
+            "estimated_readings": ESTIMATED_READINGS[0] - before,
             "device_ms_plain_kernel_kernel_plain": dev_ms,
             "per_call_ms_plain_kernel_kernel_plain": call_ms}
+
+
+# ---------------------------------------------------------------------------
+# bounds: the bytes a kernel must move and the operations it must do
+# ---------------------------------------------------------------------------
+
+# one H100 SXM (NVIDIA's data sheet): device memory rate, and the f32 rate
+# outside the tensor cores (all three kernels multiply-add in f32 registers)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+
+def _live_slots(nbr, w, nx):
+    """The slots that contribute: weight not 0 and index inside [0, nx)."""
+    return (w != 0) & (nbr >= 0) & (nbr < nx)
+
+
+def spmm_ell_work(nbr, w, x):
+    """(bytes, flops) of K1 on these operands: each row of `x` that a live
+    slot names read once, the live slots' index and weight read once, the
+    f32 output written once; 2 flops per gathered element."""
+    nx, f = x.shape
+    live = _live_slots(nbr, w, nx)
+    n_live = int(live.sum())
+    rows = int(torch.unique(nbr[live]).numel())
+    return (rows * f * x.element_size()
+            + n_live * (nbr.element_size() + w.element_size())
+            + nbr.shape[0] * f * 4), 2 * n_live * f
+
+
+def spmm_bucketed_work(x, inv_perm, bucket_shapes, nbr, w, order=None):
+    """(bytes, flops) of K3 on these operands: as K1, plus `inv_perm`; the
+    output has `x`'s type. `bucket_shapes` and the launch order move no
+    bytes that the function needs."""
+    nx, f = x.shape
+    live = _live_slots(nbr, w, nx)
+    n_live = int(live.sum())
+    rows = int(torch.unique(nbr[live]).numel())
+    n = inv_perm.shape[0]
+    return (rows * f * x.element_size()
+            + n_live * (nbr.element_size() + w.element_size())
+            + n * inv_perm.element_size()
+            + n * f * x.element_size()), 2 * n_live * f
+
+
+def sddmm_work(src, dst, x, y):
+    """(bytes, flops) of K2 on these operands: each row of `x` and of `y`
+    that a pair inside both tables names read once (once in all when `x`
+    and `y` are one tensor), both index arrays read and the f32 output
+    written once; 2 flops per multiplied pair of elements."""
+    f = x.shape[1]
+    keep = (src >= 0) & (src < x.shape[0]) & (dst >= 0) & (dst < y.shape[0])
+    if x.data_ptr() == y.data_ptr() and x.shape == y.shape:
+        rows = int(torch.unique(torch.cat([src[keep], dst[keep]])).numel())
+    else:
+        rows = int(torch.unique(src[keep]).numel()
+                   + torch.unique(dst[keep]).numel())
+    e = src.shape[0]
+    return (rows * f * x.element_size()
+            + e * (src.element_size() + dst.element_size()) + e * 4
+            ), 2 * int(keep.sum()) * f
+
+
+def bound(work):
+    """The least time the card could take for `work` = (bytes, flops): the
+    larger of bytes over its memory rate and flops over its f32 rate."""
+    nbytes, flops = work
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+# ---------------------------------------------------------------------------
+# library yardsticks: one PyTorch call for the same function. Timed here and
+# used nowhere in the port.
+# ---------------------------------------------------------------------------
+
+
+def _csr(rows, cols, vals, shape):
+    """CSR matrix of the given entries, duplicates summed."""
+    coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
+                                  vals, shape)
+    return coo.coalesce().to_sparse_csr()
+
+
+def ell_csr(nbr, w, nx):
+    """K1's operands as a CSR matrix `[M, nx]`: `spmm_ell(nbr, w, x)` is
+    `torch.sparse.mm(ell_csr(nbr, w, nx), x)`."""
+    live = _live_slots(nbr, w, nx)
+    rows = torch.arange(nbr.shape[0], device=nbr.device)[:, None].expand_as(
+        nbr)
+    return _csr(rows[live], nbr[live], w[live], (nbr.shape[0], nx))
+
+
+def bucketed_csr(inv_perm, bucket_shapes, nbr, w, nx, dtype=torch.float32):
+    """K3's operands as a CSR matrix `[N, nx]` with the rows in output
+    order, so `inv_perm` is absorbed: `spmm_bucketed(x, ...)` is
+    `torch.sparse.mm(bucketed_csr(...), x)`. Values in `dtype`."""
+    dev = nbr.device
+    widths = torch.tensor([wd for r, wd in bucket_shapes for _ in range(r)]
+                          + [0], dtype=torch.long, device=dev)
+    starts = torch.cumsum(widths, 0) - widths  # first slot of a concat row
+    p = inv_perm.long().clamp(0, widths.shape[0] - 1)
+    counts = widths[p]
+    rows = torch.repeat_interleave(
+        torch.arange(p.shape[0], device=dev), counts)
+    first = torch.cumsum(counts, 0) - counts
+    slot = (torch.repeat_interleave(starts[p] - first, counts)
+            + torch.arange(int(counts.sum()), device=dev))
+    live = _live_slots(nbr, w, nx)[slot]
+    return _csr(rows[live], nbr[slot][live], w[slot][live].to(dtype),
+                (p.shape[0], nx))
+
+
+# a library call against the kernel: the library sums in its own order and,
+# in bf16, its own precision (it was seen to differ from the f32 sums by a
+# few bf16 ulps), so this only shows that both compute the same function
+LIBRARY_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+               torch.bfloat16: dict(rtol=2**-5, atol=2**-5)}
+
+
+def library_spmm(csr_fn, x, expect):
+    """`torch.sparse.mm` of the CSR matrix `csr_fn()` (built once, outside
+    the timed call) with `x`, held against `expect` within `LIBRARY_TOL`
+    of the largest |expect|. Returns (callable, None), or (None, reason)
+    when the call does not take the input."""
+    try:
+        a = csr_fn()
+        got = torch.sparse.mm(a, x)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"no such call: {type(e).__name__}: {str(e)[:300]}"
+    scale = max(float(expect.float().abs().max()), 1.0)
+    tol = LIBRARY_TOL[x.dtype]
+    torch.testing.assert_close(got.float(), expect.float(), rtol=tol["rtol"],
+                               atol=tol["atol"] * scale)
+    return (lambda: torch.sparse.mm(a, x)), None
+
+
+def library_sddmm(src, dst, x, y, expect):
+    """`torch.sparse.sampled_addmm` (beta 0) over the pairs' pattern, as
+    `library_spmm`. The pattern is a CSR matrix, which holds a pair once."""
+    key = src.long() * y.shape[0] + dst.long()
+    if torch.unique(key).numel() != key.numel():
+        return None, ("no such call: the pairs repeat, and a CSR pattern "
+                      "holds each (src, dst) once")
+    try:
+        order = torch.argsort(key)
+        pattern = _csr(src, dst, torch.zeros(src.shape, dtype=x.dtype,
+                                             device=x.device),
+                       (x.shape[0], y.shape[0]))
+        yt = y.t()
+        got = torch.sparse.sampled_addmm(pattern, x, yt, beta=0.0)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"no such call: {type(e).__name__}: {str(e)[:300]}"
+    torch.testing.assert_close(got.values().float(), expect[order],
+                               rtol=2**-7, atol=1e-2)
+    return (lambda: torch.sparse.sampled_addmm(pattern, x, yt, beta=0.0)), None
+
+
+def report(times, work, hk, dev, library=None, reason=None, **launch_rate):
+    """A timing phase's fields: the kernel's and the plain version's times,
+    the bound of `work` and the share of it reached, the floor (an empty
+    `<<<1, 32>>>` launch timed the same way; a bound below it cannot be
+    reached), the library call's time in two turns or why there is none,
+    and the kernel's launches per epoch or step on its path."""
+    out = {**times, **bound(work), **launch_rate}
+    before = ESTIMATED_READINGS[0]
+    out["floor_ms"] = kernel_ms(lambda: hk.empty_launch(dev))
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    if library is None:
+        out["library_ms"], out["library"] = None, reason
+    else:
+        turns = [kernel_ms(library) for _ in range(2)]
+        out["library_ms"], out["library_ms_turns"] = sum(turns) / 2, turns
+    out["estimated_readings"] += ESTIMATED_READINGS[0] - before
+    return out
+
+
+def in_turns(fns):
+    """Device ms per call of each of `fns` (name -> callable, None left
+    out), measured in the order given and then in reverse, so each sees
+    the card as warm as the others: name -> [first turn, second turn], and
+    under `estimated_readings` how many of them rest on an estimated
+    capture (see `kernel_ms`)."""
+    fns = {k: f for k, f in fns.items() if f is not None}
+    turns = {k: [] for k in fns}
+    before = ESTIMATED_READINGS[0]
+    for name in [*fns, *reversed(fns)]:
+        turns[name].append(kernel_ms(fns[name], iters=30))
+    turns["estimated_readings"] = ESTIMATED_READINGS[0] - before
+    return turns
+
+
+def launch_rates(run, hk):
+    """Kernel launches by kernel and feature width that `run(n)` (a
+    training run of `n` epochs or steps) adds per epoch or step: the
+    wrappers' counts (`LAUNCHES_BY_WIDTH`) over `run(3)` less those over
+    `run(2)`, so what a run does once (building, scoring the test split)
+    cancels."""
+    def counted(n):
+        hk.LAUNCHES_BY_WIDTH.clear()
+        run(n)
+        return dict(hk.LAUNCHES_BY_WIDTH)
+
+    two, three = counted(2), counted(3)
+    return {k: v - two.get(k, 0) for k, v in three.items()
+            if v - two.get(k, 0)}
 
 
 def gcn_phases(dev, hk):
@@ -225,17 +533,33 @@ def gcn_phases(dev, hk):
         k3_err = max(k3_err, err)
         phase("h_k3_backward", x=list(x.shape), dtype=str(dtype),
               max_abs_err=err)
+    # the launches one training step adds, by kernel and width
+    batches = torch.from_numpy(gs.batch_schedule(cfg, train_pos)).to(dev)
+
+    def steps(n):
+        params = gs.init_params(cfg, torch.Generator().manual_seed(cfg.seed),
+                                dev)
+        gs.train_steps(params, gs.adam(params, cfg.learning_rate),
+                       batches[:n], ops, cfg, spmm.spmm_bucketed_sym,
+                       sd.sddmm_coo)
+
+    rates = launch_rates(steps, hk)
+    phase("g_gcn_launch_rates", launches_per_step=rates)
     k3_time = {}
     for f in (64, 128):
         x = feats(N, f, bf16)
-        k3_time[f] = time_in_turns(
-            lambda: hk.spmm_bucketed_reference(x, *ops),
-            lambda: hk.spmm_bucketed(x, *ops))
+        expect = hk.spmm_bucketed(x, *ops)
+        library, reason = library_spmm(
+            lambda: bucketed_csr(*ops, N, dtype=bf16), x, expect)
+        k3_time[f] = report(
+            time_in_turns(lambda: hk.spmm_bucketed_reference(x, *ops),
+                          lambda: hk.spmm_bucketed(x, *ops)),
+            spmm_bucketed_work(x, *ops), hk, dev, library, reason,
+            launches_per_step=rates.get(f"spmm_bucketed F={f}", 0))
         phase("h_k3_time", case=f"slice x{f} bf16", **k3_time[f])
 
     # (i) K2 against sddmm_reference: a training step's 2 x 8,192 pairs and
     # the 51,200 test pairs at F = 128, then ragged cases
-    batches = torch.from_numpy(gs.batch_schedule(cfg, train_pos)).to(dev)
     both = np.concatenate([test_pos, test_neg]).astype(np.int32)
     test_pairs = torch.from_numpy(np.ascontiguousarray(both.T)).to(dev)
     h_bf, h_32 = feats(N, 128, bf16), feats(N, 128, f32)
@@ -263,8 +587,12 @@ def gcn_phases(dev, hk):
         k2_err = max(k2_err, err)
         phase("i_k2_check", case=name, max_abs_err=err)
     step_args = cases["step 16384 x128 bf16"]
-    k2_time = time_in_turns(lambda: hk.sddmm_reference(*step_args),
-                            lambda: hk.sddmm(*step_args))
+    library, reason = library_sddmm(*step_args, hk.sddmm(*step_args))
+    k2_time = report(
+        time_in_turns(lambda: hk.sddmm_reference(*step_args),
+                      lambda: hk.sddmm(*step_args)),
+        sddmm_work(*step_args), hk, dev, library, reason,
+        launches_per_step=rates.get("sddmm F=128", 0))
     phase("i_k2_time", case="step 16384 x128 bf16", **k2_time)
 
     # (j) the main path: `train_collab` at the full config for seeds 0-2.
@@ -331,30 +659,81 @@ def gcn_phases(dev, hk):
     assert all(hk.LAUNCHES[k] > before[k] for k in ("spmm_bucketed", "sddmm"))
     phase("l_cli_scale", printed=lines[:-1], **res)
 
+    # (s) the width scan's GCN part: K3 on the slice's layout in bf16
+    # against its plain version and the library call, in turns
+    for f in (64, 128):
+        x = feats(N, f, bf16)
+        library, reason = library_spmm(
+            lambda: bucketed_csr(*ops, N, dtype=bf16), x,
+            hk.spmm_bucketed(x, *ops))
+        line = in_turns({
+            "kernel": lambda: hk.spmm_bucketed(x, *ops),
+            "plain": lambda: hk.spmm_bucketed_reference(x, *ops),
+            "library": library})
+        line["bound_ms"] = bound(spmm_bucketed_work(x, *ops))["bound_ms"]
+        phase("s_k_width_scan", f=f, dtype="bfloat16", layout="gcn slice",
+              library=reason, device_ms={"k3": line})
+
     return {"launches": launches, "k3_err": k3_err, "k3_time": k3_time[128],
             "k2_err": k2_err, "k2_time": k2_time}
 
 
-def sweep_phases(dev, hk, data, run, trn):
-    """(m)-(r): the trial-major sweep. Returns the sweep's launch counts and
-    K1's and K3's errors and times at its shapes for the kernels line."""
+def offset_copy(x):
+    """`x` in storage that starts one element past an allocation: the
+    allocator hands out blocks on 512-byte boundaries, so this copy's rows
+    are not 16-byte aligned and take a kernel's unaligned path."""
+    big = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = big[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
+def edge_case_operands(k3, x):
+    """The K3 operands `k3` and the features `x` bent into the cases a
+    kernel must survive: row 0 of `x` is NaN and every slot that names it
+    has weight 0 (a pad that points at a NaN row), one output row maps to
+    the zero row (degree 0), and an empty bucket sits in the table."""
+    inv_perm, shapes, nbr, w, order = k3
+    x = x.clone()
+    x[0] = float("nan")
+    w = torch.where(nbr == 0, 0.0, w)
+    inv_perm = inv_perm.clone()
+    inv_perm[3] = sum(r for r, _ in shapes)
+    shapes = shapes[:1] + ((0, 8),) + shapes[1:]
+    return x, (inv_perm, shapes, nbr, w, order)
+
+
+def sweep_phases(dev, hk, data, run, trn, rates):
+    """(m)-(s): the trial-major sweep. Returns the sweep's launch counts and
+    K1's and K3's errors and times at its shapes for the kernels line.
+    `rates` holds the launches per epoch of the single-trial loop and of
+    the sweep, by kernel and width."""
     from linkpred_tpu_torch import cli
     from linkpred_tpu_torch.models import twowl as m
     from linkpred_tpu_torch.ops import segment as seg
     from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
 
     T = SWEEP_TRIALS
+    # the widths at which the single-trial loop and the sweep launch K1 and
+    # K3 (each `rates` key is "<kernel> F=<f>"): phases (m) and (n) hold the
+    # kernels against their plain versions at every one of them
+    path_widths = {
+        k: {int(key.split("F=")[1]) for path in rates.values()
+            for key in path if key.startswith(k + " ")}
+        for k in ("spmm_ell", "spmm_bucketed")}
     val = m.SplitArrays.from_split(data.val, dev)
     tst = m.SplitArrays.from_split(data.test, dev)
     gen = torch.Generator(device=dev).manual_seed(2)
 
-    def feats(rows, f):
-        return torch.randn((rows, f), generator=gen, device=dev)
+    def feats(rows, f, dtype=torch.float32):
+        return torch.randn((rows, f), generator=gen, device=dev).to(dtype)
 
     # (m) K3 on the paired 2-WL composed operands (2C = 32 channels per
     # trial) against its plain version and against the plain bucket-sum
     # that 'plan' runs
     R = trn.num_rows
+    bf16 = torch.bfloat16
     cases = {
         "train fwd F=32": (trn.e1_cops[0], 32),
         "train bwd F=32": (trn.e1_cops[1], 32),
@@ -377,6 +756,37 @@ def sweep_phases(dev, hk, data, run, trn):
         phase("m_k3_check", case=name, x=list(x.shape),
               buckets=[list(b) for b in ops.k3[1]],
               slots=int(ops.k3[2].shape[0]), max_abs_err=err)
+    # both of K3's kernels (rows of 16-byte groups take the wide one: from
+    # 128 bytes here, where the card holds all output rows at once; F = 34
+    # takes the warp-per-row kernel in pairs, F = 1 in scalars) at every
+    # width the paths launch it at, forward and transpose, also from storage
+    # that is offset by one element and on the bent operands of
+    # edge_case_operands
+    k3_widths = sorted({32, 34, 96, 100, 768, 1024, 1028}
+                       | path_widths["spmm_bucketed"])
+    assert {1, 32, 32 * T} <= set(k3_widths), path_widths
+    for f, dtype, tol in [*((f, torch.float32, F32_TOL) for f in k3_widths),
+                          (1024, bf16, BF16_TOL)]:
+        errs = {}
+        for direction, ops in zip(("fwd", "bwd"), trn.e1_cops):
+            x = feats(R, f, dtype)
+            ref = hk.spmm_bucketed_reference(x, *ops.k3)
+            errs[direction] = check(
+                f"{direction} F={f}", hk.spmm_bucketed(x, *ops.k3), ref, tol)
+            errs[direction + " no order"] = check(
+                f"{direction} F={f} no order",
+                hk.spmm_bucketed(x, *ops.k3[:4]), ref, tol)
+            errs[direction + " offset"] = check(
+                f"{direction} F={f} offset",
+                hk.spmm_bucketed(offset_copy(x), *ops.k3), ref, tol)
+            xe, k3e = edge_case_operands(ops.k3, x)
+            got = hk.spmm_bucketed(xe, *k3e)
+            assert not got[3].any(), "the degree-0 row is not zero"
+            errs[direction + " edge cases"] = check(
+                f"{direction} F={f} edge cases", got,
+                hk.spmm_bucketed_reference(xe, *k3e), tol)
+        k3_err = max(k3_err, *errs.values())
+        phase("m_k3_wide_check", f=f, dtype=str(dtype), max_abs_err=errs)
     x, cot = feats(R, 32 * T).reshape(R, T, 32), feats(R, 32 * T)
     grads = []
     for kernel in (True, False):
@@ -389,25 +799,63 @@ def sweep_phases(dev, hk, data, run, trn):
     phase("m_k3_grad", x=list(x.shape), max_abs_err=err)
     # timed at the single-trial width (slice 1's 2-WL) and at T = 32
     fwd = trn.e1_cops[0]
-    for f in (32, 32 * T):
+    for f, path in ((32, "slice"), (32 * T, "sweep")):
         x = feats(R, f)
-        k3_time = time_in_turns(
-            lambda: hk.spmm_bucketed_reference(x, *fwd.k3),
-            lambda: hk.spmm_bucketed(x, *fwd.k3))
+        library, reason = library_spmm(
+            lambda: bucketed_csr(*fwd.k3[:4], R), x,
+            hk.spmm_bucketed(x, *fwd.k3))
+        k3_time = report(
+            time_in_turns(lambda: hk.spmm_bucketed_reference(x, *fwd.k3),
+                          lambda: hk.spmm_bucketed(x, *fwd.k3)),
+            spmm_bucketed_work(x, *fwd.k3), hk, dev, library, reason,
+            launches_per_epoch=rates[path].get(f"spmm_bucketed F={f}", 0))
         phase("m_k3_time", case=f"train fwd F={f}", **k3_time,
               bucket_sum=time_in_turns(
                   lambda: seg._bucket_sum(x, fwd.inv_perm, fwd.buckets),
                   lambda: hk.spmm_bucketed(x, *fwd.k3)))
 
-    # (n) K1 at the trial-major 1-WL shape [620, 114] x [3557, 768]
-    args = (trn.msg_slots, trn.msg_sweight, feats(trn.num_msg + 1, 24 * T))
-    before = hk.LAUNCHES["spmm_ell"]
-    got = hk.spmm_ell(*args)
-    assert hk.LAUNCHES["spmm_ell"] == before + 1
-    k1_err = check("K1 [3557, 768]", got, hk.spmm_ell_reference(*args),
-                   F32_TOL)
-    k1_time = time_in_turns(lambda: hk.spmm_ell_reference(*args),
-                            lambda: hk.spmm_ell(*args))
+    # (n) K1 at the trial-major 1-WL shapes [620, 114] x [3556, 24 T] and
+    # [3556, 16 T] and at every other width the paths launch it at, and both
+    # of its kernels on ragged, offset and NaN-pad inputs
+    S = trn.num_msg
+    k1_err = 0.0
+    k1_widths = sorted({24, 100, 768, 772} | path_widths["spmm_ell"])
+    assert {16, 24, 16 * T, 24 * T} <= set(k1_widths), path_widths
+    for f in k1_widths:
+        x = feats(S, f)
+        args = (trn.msg_slots, trn.msg_sweight, x)
+        ref = hk.spmm_ell_reference(*args)
+        before = hk.LAUNCHES["spmm_ell"]
+        errs = {"x": check(f"K1 F={f}", hk.spmm_ell(*args), ref, F32_TOL)}
+        assert hk.LAUNCHES["spmm_ell"] == before + 1
+        errs["offset"] = check(
+            f"K1 F={f} offset",
+            hk.spmm_ell(trn.msg_slots, trn.msg_sweight, offset_copy(x)), ref,
+            F32_TOL)
+        # random weights and indices, some outside x's rows; row 0 of x is
+        # NaN and every slot that names it has weight 0. Up to 87 products
+        # of two normal draws, added in another order than the plain
+        # version's: atol 5e-5
+        nbr = torch.randint(-2, S + 3, (70, 130), generator=gen, device=dev,
+                            dtype=torch.int32)
+        w = torch.randn((70, 130), generator=gen, device=dev)
+        w[::3] = 0.0
+        w[nbr == 0] = 0.0
+        xn = x.clone()
+        xn[0] = float("nan")
+        errs["ragged, NaN pad"] = check(
+            f"K1 F={f} ragged", hk.spmm_ell(nbr, w, xn),
+            hk.spmm_ell_reference(nbr, w, xn), dict(rtol=1e-5, atol=5e-5))
+        k1_err = max(k1_err, *errs.values())
+        phase("n_k1_wide_check", f=f, max_abs_err=errs)
+    args = (trn.msg_slots, trn.msg_sweight, feats(S, 24 * T))
+    library, reason = library_spmm(lambda: ell_csr(*args[:2], S), args[2],
+                                   hk.spmm_ell(*args))
+    k1_time = report(
+        time_in_turns(lambda: hk.spmm_ell_reference(*args),
+                      lambda: hk.spmm_ell(*args)),
+        spmm_ell_work(*args), hk, dev, library, reason,
+        launches_per_epoch=rates["sweep"].get(f"spmm_ell F={24 * T}", 0))
     phase("n_k1_trials", shape=[list(a.shape) for a in args],
           max_abs_err=k1_err, **k1_time)
 
@@ -569,6 +1017,37 @@ def sweep_phases(dev, hk, data, run, trn):
                for k in ("spmm_ell", "spmm_bucketed"))
     phase("r_cli_twowl_refine", auc=auc, printed=lines[-4:], written=written)
 
+    # (s) width scan, f32: K3 on the train split's forward and transpose
+    # operands and K1 on its message slots, each against the plain version,
+    # the bucket-sum that 'plan' runs and the library call, in turns
+    bwd = trn.e1_cops[1]
+    msg_plan = (trn.msg_plan[1], trn.msg_plan[2])
+    for f in (32, 64, 128, 256, 512, 1024):
+        x, xm = feats(R, f), feats(S, f)
+        line = {}
+        for name, ops in (("k3_fwd", fwd), ("k3_bwd", bwd)):
+            library, reason = library_spmm(
+                lambda: bucketed_csr(*ops.k3[:4], R), x,
+                hk.spmm_bucketed(x, *ops.k3))
+            line[name] = in_turns({
+                "kernel": lambda: hk.spmm_bucketed(x, *ops.k3),
+                "plain": lambda: hk.spmm_bucketed_reference(x, *ops.k3),
+                "bucket_sum": lambda: seg._bucket_sum(x, ops.inv_perm,
+                                                      ops.buckets),
+                "library": library})
+            line[name]["bound_ms"] = bound(
+                spmm_bucketed_work(x, *ops.k3))["bound_ms"]
+        args = (trn.msg_slots, trn.msg_sweight, xm)
+        library, reason = library_spmm(lambda: ell_csr(*args[:2], S), xm,
+                                       hk.spmm_ell(*args))
+        line["k1"] = in_turns({
+            "kernel": lambda: hk.spmm_ell(*args),
+            "plain": lambda: hk.spmm_ell_reference(*args),
+            "bucket_sum": lambda: seg._bucket_sum(xm, *msg_plan),
+            "library": library})
+        line["k1"]["bound_ms"] = bound(spmm_ell_work(*args))["bound_ms"]
+        phase("s_k_width_scan", f=f, dtype="float32", device_ms=line)
+
     return {"launches": launches, "k1_err": k1_err, "k1_time": k1_time,
             "k3_err": k3_err, "k3_time": k3_time}
 
@@ -576,6 +1055,7 @@ def sweep_phases(dev, hk, data, run, trn):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
+    from linkpred_tpu_torch import native
     from linkpred_tpu_torch.kernels import build
     from linkpred_tpu_torch.models import twowl as m
     from linkpred_tpu_torch.ops import hopper_kernels as hk
@@ -592,9 +1072,10 @@ def main():
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, python=sys.version.split()[0])
 
-    # (b) build K1, K3 and K2 from the sources in this checkout, one nvcc
-    # per source, all at once
-    kernel_names = ("spmm_ell", "spmm_bucketed", "sddmm")
+    # (b) build K1, K3, K2 and the empty kernel (the floor under a kernel's
+    # time) from the sources in this checkout, one nvcc per source, all at
+    # once
+    kernel_names = ("spmm_ell", "spmm_bucketed", "sddmm", "empty_launch")
     t0 = time.perf_counter()
     build.libraries(kernel_names)
     phase("b_build", kernels=kernel_names, nvcc=build.nvcc_path(),
@@ -607,14 +1088,27 @@ def main():
             print(f"  nvcc {k}: {line}")
 
     # the slice's data; the host negative sampler's C++ library is built by
-    # the data builder on first use (numpy fallback when that build fails)
+    # the data module on first use (numpy sampler when that build fails)
     run = tp.TwoWLRunConfig()
     edges, num_nodes = tp.load_edges()
     data = tp.build_data(edges, num_nodes, run, np.random.default_rng(0))
     phase("data", nodes=num_nodes, max_degree=data.max_degree,
           msg_train=data.train.num_msg, rows_test=data.test.num_rows,
-          native_host_lib=os.path.exists(os.path.join("native",
-                                                      "libgraphlib.so")))
+          negative_sampler="c++" if native.available() else "numpy",
+          native_host_lib=str(native.library_path().relative_to(
+              os.getcwd())))
+
+    # the launches one epoch adds, by kernel and width: the single-trial
+    # loop and the trial-major sweep, both on K1 and K3
+    cfg_ell = m.TwoWLConfig(max_degree=data.max_degree, agg_1wl="ell")
+    rates = {
+        "slice": launch_rates(lambda n: tp.train_routine_fused(
+            data, cfg_ell, dataclasses.replace(run, epochs=n), dev), hk),
+        "sweep": launch_rates(lambda n: tp.refine_vmapped(
+            data, cfg_ell, dataclasses.replace(run, epochs=n),
+            n_trials=SWEEP_TRIALS, device=dev), hk),
+    }
+    phase("launch_rates", launches_per_epoch=rates)
 
     # (c) K1 against spmm_ell_reference on the card: slice shapes + ragged
     trn = m.SplitArrays.from_split(data.train, dev)
@@ -633,13 +1127,13 @@ def main():
 
     cases = {
         "train[620,114]x24": (trn.msg_slots, trn.msg_sweight,
-                              feats(trn.num_msg + 1, 24)),
+                              feats(trn.num_msg, 24)),
         "train[620,114]x16": (trn.msg_slots, trn.msg_sweight,
-                              feats(trn.num_msg + 1, 16)),
+                              feats(trn.num_msg, 16)),
         "test[620,120]x24": (tst.msg_slots, tst.msg_sweight,
-                             feats(tst.num_msg + 1, 24)),
+                             feats(tst.num_msg, 24)),
         "train x64": (trn.msg_slots, trn.msg_sweight,
-                      feats(trn.num_msg + 1, 64)),
+                      feats(trn.num_msg, 64)),
         "ragged D=1 F=7": ragged(40, 1, 30, 7),
         "ragged F=33": ragged(25, 6, 11, 33),
         "ragged F=1": ragged(12, 4, 5, 1),
@@ -659,9 +1153,15 @@ def main():
     timing = {}
     for name in ("train[620,114]x24", "train[620,114]x16"):
         args = cases[name]
-
-        timing[name] = time_in_turns(lambda: hk.spmm_ell_reference(*args),
-                                     lambda: hk.spmm_ell(*args))
+        library, reason = library_spmm(
+            lambda: ell_csr(*args[:2], args[2].shape[0]), args[2],
+            hk.spmm_ell(*args))
+        f = args[2].shape[1]
+        timing[name] = report(
+            time_in_turns(lambda: hk.spmm_ell_reference(*args),
+                          lambda: hk.spmm_ell(*args)),
+            spmm_ell_work(*args), hk, dev, library, reason,
+            launches_per_epoch=rates["slice"].get(f"spmm_ell F={f}", 0))
         phase("c_k1_time", case=name, **timing[name])
 
     # (d) kernel path against plain path: published-best architecture,
@@ -764,14 +1264,17 @@ def main():
               record=lines[0])
 
     gcn = gcn_phases(dev, hk)
-    sweep = sweep_phases(dev, hk, data, run, trn)
+    sweep = sweep_phases(dev, hk, data, run, trn, rates)
 
     def row(name, source, replaces, launches, err, times):
         return {"name": name, "route": "cuda",
                 "source": f"linkpred_tpu_torch/csrc/{source}",
                 "replaces": f"linkpred_tpu/ops/pallas_kernels.py:{replaces}",
                 "launches": launches, "max_abs_err": err, "ms": times["ms"],
-                "plain_ms": times["plain_ms"]}
+                "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
+                "bound_by": times["bound_by"],
+                "library_ms": times["library_ms"],
+                "estimated_readings": times["estimated_readings"]}
 
     # K1 and K3 carry the sweep's launches (phase p) and their times at its
     # shapes (phases n, m); K2 the collab run's (phase j)

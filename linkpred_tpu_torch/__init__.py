@@ -2,9 +2,9 @@
 
 The JAX package `linkpred_tpu` stays the reference; this package mirrors its
 module names (`ops.segment`, `models.twowl`, `pipelines.twowl_pipeline`, ...)
-so each counterpart is easy to find. It imports `torch` and never `jax`: the
-only modules it shares with the reference are the JAX-free host builders
-`linkpred_tpu.data.{io,twowl,split}` and `linkpred_tpu.native`.
+so each counterpart is easy to find. It imports `torch`, never `jax`, and
+nothing of the reference: the host modules it needs (`data.{graph,io,split,
+twowl,synth}`, `native`) are its own copies.
 
 Every TPU kernel on a ported path is a kernel written by hand for Hopper
 (`csrc/`, built at first use by `kernels.build`). Its wrapper in

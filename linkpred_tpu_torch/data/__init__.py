@@ -1,0 +1,5 @@
+"""Host-side data modules of the port (numpy only): `graph`, `io`, `split`,
+`twowl` and `synth`. They are the port's own copies of
+`linkpred_tpu/data/{graph,io,split,twowl}.py` and of the synthetic graph
+generators of `benchmarks/scaling.py`, with the same names and behaviour, so
+the port imports nothing of the JAX package."""

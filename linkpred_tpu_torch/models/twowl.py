@@ -202,7 +202,7 @@ def gcn_conv(p: dict, x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class SplitArrays:
     """Device-resident static arrays of one TwoWL split (see
-    `linkpred_tpu.data.twowl.TwoWLSplit`). Indices used by PyTorch indexing
+    `linkpred_tpu_torch.data.twowl.TwoWLSplit`). Indices used by PyTorch indexing
     are int64; K1's slot matrix and K3's composed layout are int32,
     converted once here."""
 

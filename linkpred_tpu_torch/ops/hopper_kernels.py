@@ -5,11 +5,14 @@ Each kernel has a plain PyTorch version beside it. A wrapper takes that
 version only for tensors that lie on the CPU (the tests); for CUDA tensors it
 launches the kernel or raises, with no fallback. `LAUNCHES` counts the
 kernel launches of each wrapper, so a run can show that it went through the
-kernel.
+kernel; `LAUNCHES_BY_WIDTH` counts the same launches by feature width.
 
     K1 spmm_ell       csrc/spmm_ell.cu       ELL SpMM, f32
     K3 spmm_bucketed  csrc/spmm_bucketed.cu  bucketed ELL SpMM, f32 or bf16
     K2 sddmm          csrc/sddmm.cu          per-edge dot products -> f32
+
+K1 and K3 choose between a warp-per-row kernel and a wide-row kernel by the
+shape and alignment of `x` inside their launch functions.
 """
 
 from __future__ import annotations
@@ -17,11 +20,14 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from linkpred_tpu_torch.kernels import build
 
 LAUNCHES = {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0}
+# the same launches by kernel and feature width, under keys "<kernel> F=<f>"
+LAUNCHES_BY_WIDTH: dict[str, int] = {}
 
 # dtype codes of the kernels templated on the feature type
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,9 +65,10 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # and the stream as void*)
 _ENTRY_POINTS = {
     "spmm_ell": ("spmm_ell_f32", [_P] * 4 + [_I64] * 4 + [_P]),
-    "spmm_bucketed": ("spmm_bucketed", [_I32] + [_P] * 5 + [_I64] * 4
+    "spmm_bucketed": ("spmm_bucketed", [_I32] + [_P] * 6 + [_I64] * 4
                       + [_P, _P]),
     "sddmm": ("sddmm", [_I32] + [_P] * 5 + [_I64] * 4 + [_P]),
+    "empty_launch": ("empty_launch", [_P]),
 }
 
 
@@ -78,18 +85,32 @@ def _entry(name: str):
     return fn, err
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, f: int, *args) -> None:
     """Launch kernel `name` with `args` (the stream last) and count the
-    launch; raise with CUDA's message when it was refused."""
+    launch, also under its feature width `f`; raise with CUDA's message when
+    it was refused."""
     fn, err = _entry(name)
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {err(rc).decode()}")
     LAUNCHES[name] += 1
+    key = f"{name} F={f}"
+    LAUNCHES_BY_WIDTH[key] = LAUNCHES_BY_WIDTH.get(key, 0) + 1
 
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch `csrc/empty_launch.cu`, a kernel that does nothing, on
+    `device`: what a measurement times as the floor under any kernel. It is
+    no kernel of a path and is not counted in `LAUNCHES`."""
+    fn, err = _entry("empty_launch")
+    with torch.cuda.device(device):
+        rc = fn(_stream(device))
+    if rc != 0:
+        raise RuntimeError(f"empty_launch failed: {err(rc).decode()}")
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +153,7 @@ def spmm_ell(nbr: torch.Tensor, w: torch.Tensor,
     if m == 0 or f == 0:
         return out
     with torch.cuda.device(x.device):
-        _launch("spmm_ell", nbr.data_ptr(), w.data_ptr(), x.data_ptr(),
+        _launch("spmm_ell", f, nbr.data_ptr(), w.data_ptr(), x.data_ptr(),
                 out.data_ptr(), m, d, nx, f, _stream(x.device))
     return out
 
@@ -142,15 +163,25 @@ def spmm_ell(nbr: torch.Tensor, w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def launch_order(inv_perm) -> np.ndarray:
+    """The order in which K3 takes the output rows, from a host `inv_perm`
+    [N]: by concat row from the last down, so the rows of the widest bucket
+    start first and no long row is left for the end. int32 [N]."""
+    return np.argsort(-np.asarray(inv_perm, dtype=np.int64),
+                      kind="stable").astype(np.int32)
+
+
 def spmm_bucketed_reference(x: torch.Tensor, inv_perm: torch.Tensor,
                             bucket_shapes: tuple, nbr: torch.Tensor,
-                            w: torch.Tensor) -> torch.Tensor:
+                            w: torch.Tensor,
+                            order: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch K3, the reference's `spmm_bucketed`: per bucket of
     `(rows, width)` slots, `agg[r] = sum_d round(w[r, d]) * x[nbr[r, d]]`
     with the weight rounded to `x.dtype` and the sum in f32; then the
     aggregates, with one zero row appended, are gathered by `inv_perm`
     [N] and rounded to `x.dtype` once. A slot whose weight is 0 or whose
-    index lies outside `[0, x.shape[0])` contributes nothing."""
+    index lies outside `[0, x.shape[0])` contributes nothing. `order`, the
+    kernel's launch order, does not change the result and is ignored."""
     nx, f = x.shape
     keep = (nbr >= 0) & (nbr < nx) & (w != 0)
     idx = torch.where(keep, nbr, 0).long()
@@ -159,6 +190,8 @@ def spmm_bucketed_reference(x: torch.Tensor, inv_perm: torch.Tensor,
     for rows, width in bucket_shapes:
         s1 = s0 + rows * width
         g = x.index_select(0, idx[s0:s1]).reshape(rows, width, f).float()
+        # a dropped slot's row may hold NaN: select, do not multiply by 0
+        g = torch.where(keep[s0:s1].reshape(rows, width, 1), g, 0.0)
         parts.append(torch.einsum("nd,ndf->nf",
                                   wr[s0:s1].reshape(rows, width), g))
         s0 = s1
@@ -168,21 +201,31 @@ def spmm_bucketed_reference(x: torch.Tensor, inv_perm: torch.Tensor,
 
 def spmm_bucketed(x: torch.Tensor, inv_perm: torch.Tensor,
                   bucket_shapes: tuple, nbr: torch.Tensor,
-                  w: torch.Tensor) -> torch.Tensor:
+                  w: torch.Tensor,
+                  order: torch.Tensor | None = None) -> torch.Tensor:
     """K3, the bucketed ELL SpMM with its output assembly, in one launch.
 
     `x` [NX, F] float32 or bfloat16, `inv_perm` [N] int32 (each output
     row's row among the buckets' concatenated rows; their count means the
     zero row), `bucket_shapes` a host tuple of `(rows, width)`, `nbr` [S]
     int32 and `w` [S] float32 the buckets' slots concatenated in order ->
-    [N, F] of `x.dtype`. CUDA tensors run `csrc/spmm_bucketed.cu` (built at
-    first use); CPU tensors run `spmm_bucketed_reference`."""
+    [N, F] of `x.dtype`. `order` [N] int32, a permutation of the output rows
+    (`launch_order`), is the order the kernel takes them in; without it they
+    go in row order. The result does not depend on it. CUDA tensors run
+    `csrc/spmm_bucketed.cu` (built at first use); CPU tensors run
+    `spmm_bucketed_reference`."""
     if _on_cpu(x, inv_perm, nbr, w):
         return spmm_bucketed_reference(x, inv_perm, bucket_shapes, nbr, w)
-    _check_cuda("spmm_bucketed", x.device, (
-        ("x", x, _FEATURE_DTYPES, 2),
-        ("inv_perm", inv_perm, (torch.int32,), 1),
-        ("nbr", nbr, (torch.int32,), 1), ("w", w, (torch.float32,), 1)))
+    operands = [("x", x, _FEATURE_DTYPES, 2),
+                ("inv_perm", inv_perm, (torch.int32,), 1),
+                ("nbr", nbr, (torch.int32,), 1),
+                ("w", w, (torch.float32,), 1)]
+    if order is not None:
+        operands.append(("order", order, (torch.int32,), 1))
+        if order.shape != inv_perm.shape:
+            raise ValueError(f"spmm_bucketed: order {tuple(order.shape)} != "
+                             f"inv_perm {tuple(inv_perm.shape)}")
+    _check_cuda("spmm_bucketed", x.device, operands)
     if len(bucket_shapes) > MAX_BUCKETS:
         raise ValueError(f"spmm_bucketed: {len(bucket_shapes)} buckets, the "
                          f"kernel takes at most {MAX_BUCKETS}")
@@ -201,9 +244,10 @@ def spmm_bucketed(x: torch.Tensor, inv_perm: torch.Tensor,
     shapes = (ctypes.c_int64 * (2 * len(bucket_shapes)))(
         *(v for shape in bucket_shapes for v in shape))
     with torch.cuda.device(x.device):
-        _launch("spmm_bucketed", _DTYPE_CODES[x.dtype], x.data_ptr(),
-                inv_perm.data_ptr(), nbr.data_ptr(), w.data_ptr(),
-                out.data_ptr(), n, nx, f, len(bucket_shapes),
+        _launch("spmm_bucketed", f, _DTYPE_CODES[x.dtype], x.data_ptr(),
+                inv_perm.data_ptr(),
+                None if order is None else order.data_ptr(), nbr.data_ptr(),
+                w.data_ptr(), out.data_ptr(), n, nx, f, len(bucket_shapes),
                 ctypes.addressof(shapes), _stream(x.device))
     return out
 
@@ -247,7 +291,7 @@ def sddmm(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
     if e == 0:
         return out
     with torch.cuda.device(x.device):
-        _launch("sddmm", _DTYPE_CODES[x.dtype], src.data_ptr(),
+        _launch("sddmm", f, _DTYPE_CODES[x.dtype], src.data_ptr(),
                 dst.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
                 e, nx, ny, f, _stream(x.device))
     return out

@@ -22,7 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from linkpred_tpu_torch.ops.hopper_kernels import spmm_bucketed, spmm_ell
+from linkpred_tpu_torch.ops.hopper_kernels import (launch_order, spmm_bucketed,
+                                                  spmm_ell)
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -163,9 +164,10 @@ class ComposedOps(NamedTuple):
     """One direction of a composed gather-sum on the device, in two layouts
     of the same buckets: `(inv_perm, buckets)` as int64 tensors for the
     plain bucket-sum, and `k3`, the arguments of `spmm_bucketed` after `x`:
-    `(inv_perm [R] int32, bucket_shapes, nbr [S] int32, weight [S] float32)`
-    with the buckets' slots flattened in order, weights 1 and the pads'
-    sentinel left as it is (K3 drops an index outside `x`'s rows)."""
+    `(inv_perm [R] int32, bucket_shapes, nbr [S] int32, weight [S] float32,
+    order [R] int32)` with the buckets' slots flattened in order, weights 1,
+    the pads' sentinel left as it is (K3 drops an index outside `x`'s rows)
+    and the widest-first launch order."""
 
     inv_perm: torch.Tensor
     buckets: tuple
@@ -190,7 +192,8 @@ def composed_operands(plan: SegmentPlan, values: np.ndarray, sentinel: int,
         k3=(torch.as_tensor(plan.inv_perm, dtype=torch.int32, device=device),
             tuple((int(b.shape[0]), int(b.shape[1])) for b in mats),
             torch.as_tensor(flat, dtype=torch.int32, device=device),
-            torch.ones(flat.shape, dtype=torch.float32, device=device)),
+            torch.ones(flat.shape, dtype=torch.float32, device=device),
+            torch.as_tensor(launch_order(plan.inv_perm), device=device)),
     )
 
 
@@ -299,7 +302,7 @@ class _SegmentSumEll(torch.autograd.Function):
     def forward(ctx, msgs, dst, slots, weight):
         ctx.save_for_backward(dst)
         out = spmm_ell(slots, weight,
-                       _with_zero_row(msgs.reshape(msgs.shape[0], -1)))
+                       msgs.reshape(msgs.shape[0], -1).contiguous())
         return out.reshape((out.shape[0],) + tuple(msgs.shape[1:]))
 
     @staticmethod
@@ -317,7 +320,7 @@ def segment_sum_ell(num_segments: int, msgs: torch.Tensor, dst: torch.Tensor,
     `SegmentPlan.operands` (used only by the backward gather). `msgs` is
     [S, ...] float32, its trailing dims flattened for the kernel (the
     trial-major `[S, T, C]` is one `[S, T*C]` call); the slot sentinel `S`
-    hits the appended zero row."""
+    lies outside `msgs`' rows, and K1 drops such a slot."""
     if slots.shape[0] != num_segments:
         raise ValueError(
             f"ELL operands have {slots.shape[0]} rows, expected {num_segments}")

@@ -84,7 +84,7 @@ class BucketedEll:
     @staticmethod
     def from_graph(g) -> "BucketedEll":
         """Layout for `out[i] = sum_j w_ij x[nbr_ij]` over a `Graph`'s ELL
-        view (`linkpred_tpu.data.graph.Graph`)."""
+        view (`linkpred_tpu_torch.data.graph.Graph`)."""
         return BucketedEll.build(g.nbr, g.nbr_mask, g.nbr_weight)
 
     @property
@@ -94,7 +94,10 @@ class BucketedEll:
     def operands(self, device) -> tuple:
         """K3's layout on `device`: `(inv_perm [N] int32, bucket_shapes,
         nbr [S] int32, weight [S] float32)`, the buckets' rows concatenated
-        in order; `bucket_shapes` is a host tuple of `(rows, width)`."""
+        in order; `bucket_shapes` is a host tuple of `(rows, width)`. K3's
+        optional launch order is left out: a graph's rows are many times
+        the warps the card holds at once and at most `max_degree` wide, so
+        the kernel takes them in row order."""
         shapes = tuple((int(nb.shape[0]), int(nb.shape[1]))
                        for _, nb, _ in self.buckets)
         nbr = np.concatenate([nb.reshape(-1) for _, nb, _ in self.buckets]

@@ -27,6 +27,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from linkpred_tpu_torch.data.graph import Graph
+from linkpred_tpu_torch.data.io import load_edge_pairs
+from linkpred_tpu_torch.data.split import negative_sampling
+from linkpred_tpu_torch.data.synth import (synth_community_graph,
+                                           synth_powerlaw_graph)
 from linkpred_tpu_torch.ops.sddmm import sddmm_coo
 from linkpred_tpu_torch.ops.spmm import BucketedEll, spmm_bucketed_sym
 from linkpred_tpu_torch.utils.metrics import roc_auc_score
@@ -51,7 +56,7 @@ class ScaleGCNConfig:
     aggregation: str = "node_sharded"
     graph: str = "powerlaw"  # or "community" (clustered, collab-like)
     # a real edge dump (`cli scale --edges-file`, read by
-    # linkpred_tpu.data.io.load_edge_pairs) replaces the synthetic graph
+    # data.io.load_edge_pairs) replaces the synthetic graph
     edges_file: str | None = None
 
 
@@ -64,8 +69,6 @@ def resolve_graph_source(cfg: ScaleGCNConfig):
     edge dump and rewrite nodes/edges from it."""
     if not cfg.edges_file:
         return cfg, None
-    from linkpred_tpu.data.io import load_edge_pairs
-
     lo, hi, n = load_edge_pairs(cfg.edges_file)
     return dataclasses.replace(cfg, nodes=n, edges=len(lo)), (lo, hi)
 
@@ -75,12 +78,9 @@ def build_problem(cfg: ScaleGCNConfig, pairs_override=None):
     split, and the symmetric-capped, symmetric-normalised message graph.
 
     Returns `(graph, train_pos, test_pos, test_neg)`, all host numpy and
-    array-equal to the reference's: the same JAX-free builders are called in
-    the same order on the same `np.random.default_rng(cfg.seed)`."""
-    from benchmarks.scaling import synth_community_graph, synth_powerlaw_graph
-    from linkpred_tpu.data.graph import Graph
-    from linkpred_tpu.data.split import negative_sampling
-
+    array-equal to the reference's: the port's copies of its host modules
+    are called in the same order on the same
+    `np.random.default_rng(cfg.seed)`."""
     rng = np.random.default_rng(cfg.seed)
     if pairs_override is not None:
         lo, hi = pairs_override

@@ -2,8 +2,7 @@
 counterpart of `linkpred_tpu/pipelines/twowl_pipeline.py`.
 
 1. load fb-pages-food and build the 85/5/10 split with doubled edges and
-   ei2 edge-pair structures (the shared JAX-free host builder
-   `linkpred_tpu.data.twowl`),
+   ei2 edge-pair structures (the port's host module `data.twowl`),
 2. per epoch: one val-sized minibatch of positive + negative pairs, the
    positives masked out of the message graph, Adam, val AUC on the device,
 3. early stop, best-val params, test AUC, and the reference-format outputs
@@ -32,8 +31,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from linkpred_tpu.data import io
-from linkpred_tpu.data.twowl import TwoWLData, TwoWLSplit, build_twowl_data
+from linkpred_tpu_torch.data import io
+from linkpred_tpu_torch.data.twowl import (TwoWLData, TwoWLSplit,
+                                           build_twowl_data)
 from linkpred_tpu_torch.models import twowl as m
 from linkpred_tpu_torch.utils import metrics, records
 from linkpred_tpu_torch.utils.timer import StepTimer

@@ -28,8 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from linkpred_tpu.data import io
-from linkpred_tpu.data.twowl import build_twowl_data
+from linkpred_tpu_torch.data import io
+from linkpred_tpu_torch.data.twowl import build_twowl_data
 from linkpred_tpu_torch.models import twowl as m
 from linkpred_tpu_torch.ops import hopper_kernels as hk
 from linkpred_tpu_torch.ops import sddmm as sd
@@ -77,9 +77,11 @@ def _operands(shape, seed, dev):
 def test_spmm_ell_matches_reference(cuda, shape):
     nbr, w, x = _operands(shape, sum(shape), cuda)
     before = hk.LAUNCHES["spmm_ell"]
+    by_width = hk.LAUNCHES_BY_WIDTH.get(f"spmm_ell F={shape[3]}", 0)
     got = hk.spmm_ell(nbr, w, x)
     torch.cuda.synchronize()
     assert hk.LAUNCHES["spmm_ell"] == before + 1
+    assert hk.LAUNCHES_BY_WIDTH[f"spmm_ell F={shape[3]}"] == by_width + 1
     ref = hk.spmm_ell_reference(nbr, w, x)
     assert got.shape == ref.shape and got.dtype == torch.float32
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
@@ -100,6 +102,7 @@ def test_spmm_ell_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         hk.spmm_ell(nbr, w[:, :4].contiguous(), x)
     assert hk.LAUNCHES["spmm_ell"] == before
+    assert sum(hk.LAUNCHES_BY_WIDTH.values()) == sum(hk.LAUNCHES.values())
 
 
 def test_segment_sum_ell_forward_and_grad(cuda):
@@ -181,7 +184,7 @@ def test_gather_sum_composed_on_k3_matches_plain(cuda, fb_data, shape):
 
 def test_segment_sum_ell_trial_major(cuda, fb_data):
     """K1 on the trial-major 1-WL messages [3556, 32, 24] (one [620, 114] x
-    [3557, 768] launch) against the planned bucket-sum."""
+    [3556, 768] launch) against the planned bucket-sum."""
     arrays = m.SplitArrays.from_split(fb_data.train, cuda)
     n = fb_data.num_nodes
     msgs = _x(arrays.num_msg, 32 * 24, torch.float32, cuda, 5).reshape(
@@ -412,3 +415,142 @@ def test_gcn_step_on_kernels_matches_plain(cuda, gcn_problem):
     for k in g_k:
         torch.testing.assert_close(g_k[k], g_p[k], rtol=1e-4, atol=1e-6,
                                    msg=k)
+
+
+# ---------------------------------------------------------------------------
+# wide rows: K3 and K1 choose a kernel by the shape and alignment of x
+# ---------------------------------------------------------------------------
+
+
+def _offset_copy(x):
+    """`x` in storage that starts one element past an allocation (which is
+    512-byte aligned): rows off the 16-byte grid, the unaligned path."""
+    big = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = big[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def _composed(cuda, seed=0, rows=700, slots=9000):
+    """A composed gather-sum's K3 operands, both directions, with sentinel
+    pads, empty segments, segments of about 13 slots and five of 120."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, rows - 50, slots)
+    dst[:600] = np.repeat(np.arange(5), 120)
+    dst[rng.random(slots) < 0.1] = rows
+    src = np.where(dst < rows, rng.integers(0, rows, slots), rows)
+    back = np.where(dst < rows, dst, rows)
+    fwd = seg.composed_operands(seg.SegmentPlan.build(dst, rows), src, rows,
+                                cuda)
+    bwd = seg.composed_operands(seg.SegmentPlan.build(src, rows), back, rows,
+                                cuda)
+    return rows, fwd, bwd
+
+
+# F: rows that take the warp-per-row kernel (34 f32, not whole 16-byte
+# groups; 48 bf16, under 128 bytes), part of a tile (32, 96, 100 f32; 96, 128
+# bf16), whole tiles (128, 768, 1024), a ragged last tile (1028 f32, 264 bf16)
+WIDE_CASES = [(32, torch.float32), (34, torch.float32), (48, torch.bfloat16), (96, torch.float32), (100, torch.float32),
+              (128, torch.float32), (768, torch.float32),
+              (1024, torch.float32), (1028, torch.float32),
+              (1024, torch.bfloat16), (256, torch.bfloat16),
+              (264, torch.bfloat16), (128, torch.bfloat16),
+              (96, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("direction", [0, 1], ids=["forward", "transpose"])
+@pytest.mark.parametrize("f,dtype", WIDE_CASES, ids=str)
+def test_spmm_bucketed_wide_rows(cuda, f, dtype, direction):
+    """Both kernels of K3, with and without the launch order, and from
+    storage offset by one element, against the plain version."""
+    rows, *both = _composed(cuda)
+    k3 = both[direction].k3
+    x = _x(rows, f, dtype, cuda, f)
+    ref = hk.spmm_bucketed_reference(x, *k3)
+    before = hk.LAUNCHES["spmm_bucketed"]
+    for got in (hk.spmm_bucketed(x, *k3), hk.spmm_bucketed(x, *k3[:4]),
+                hk.spmm_bucketed(_offset_copy(x), *k3)):
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **FEATURE_TOL[dtype])
+    assert hk.LAUNCHES["spmm_bucketed"] == before + 3
+
+
+@pytest.mark.parametrize("f,dtype", [(100, torch.float32),
+                                     (1024, torch.float32),
+                                     (1024, torch.bfloat16)], ids=str)
+def test_spmm_bucketed_nan_pad_zero_row_empty_bucket(cuda, f, dtype):
+    """A pad (weight 0) that points at a NaN row contributes nothing, an
+    output row mapped to the zero row is 0, an empty bucket is skipped."""
+    rows, fwd, _ = _composed(cuda, seed=1)
+    inv_perm, shapes, nbr, w, order = fwd.k3
+    x = _x(rows, f, dtype, cuda)
+    x[0] = float("nan")
+    w = torch.where(nbr == 0, 0.0, w)
+    inv_perm = inv_perm.clone()
+    inv_perm[3] = sum(r for r, _ in shapes)
+    shapes = shapes[:1] + ((0, 8),) + shapes[1:]
+    got = hk.spmm_bucketed(x, inv_perm, shapes, nbr, w, order)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and not got[3].any()
+    ref = hk.spmm_bucketed_reference(x, inv_perm, shapes, nbr, w)
+    torch.testing.assert_close(got.float(), ref.float(), **FEATURE_TOL[dtype])
+
+
+def test_spmm_bucketed_rejects_a_wrong_order(cuda):
+    rows, fwd, _ = _composed(cuda)
+    x = _x(rows, 8, torch.float32, cuda)
+    inv_perm, shapes, nbr, w, order = fwd.k3
+    before = hk.LAUNCHES["spmm_bucketed"]
+    with pytest.raises(TypeError):
+        hk.spmm_bucketed(x, inv_perm, shapes, nbr, w, order.long())
+    with pytest.raises(ValueError):
+        hk.spmm_bucketed(x, inv_perm, shapes, nbr, w, order[:-1].contiguous())
+    assert hk.LAUNCHES["spmm_bucketed"] == before
+
+
+@pytest.mark.parametrize("f", [24, 100, 128, 768, 772])
+def test_spmm_ell_wide_rows(cuda, f):
+    """Both kernels of K1 on rows of up to 130 slots (the wide kernel adds
+    four warps' partial sums, so the order of the f32 sums differs from the
+    plain version's: atol 5e-5 on sums of ~87 products of normal draws),
+    from offset storage, with out-of-range indices and a NaN row that only
+    weight-0 slots name."""
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    nx = 500
+    nbr = torch.randint(-2, nx + 3, (70, 130), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    w = torch.randn((70, 130), generator=gen, device=cuda)
+    w[::3] = 0.0
+    w[nbr == 0] = 0.0
+    x = _x(nx, f, torch.float32, cuda, f)
+    x[0] = float("nan")
+    ref = hk.spmm_ell_reference(nbr, w, x)
+    before = hk.LAUNCHES["spmm_ell"]
+    for got in (hk.spmm_ell(nbr, w, x), hk.spmm_ell(nbr, w, _offset_copy(x))):
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and (got[::3] == 0).all()
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=5e-5)
+    assert hk.LAUNCHES["spmm_ell"] == before + 2
+
+
+def test_segment_sum_ell_trial_major_on_the_card(cuda):
+    """`segment_sum_ell` on `[S, T, C]` messages with sentinel slots, no
+    zero row appended, against the planned bucket-sum."""
+    rng = np.random.default_rng(5)
+    n_seg, n_slots, t, c = 620, 3556, 32, 24
+    ids = rng.integers(0, n_seg, n_slots).astype(np.int32)
+    ids[rng.random(n_slots) < 0.1] = n_seg
+    plan = seg.SegmentPlan.build(ids, n_seg)
+    ops = plan.operands(cuda)
+    slots, weight = plan.ell_operands(cuda)
+    msgs = torch.from_numpy(
+        rng.standard_normal((n_slots, t, c)).astype(np.float32)).to(cuda)
+    before = hk.LAUNCHES["spmm_ell"]
+    got = seg.segment_sum_ell(n_seg, msgs, ops[0], slots, weight)
+    assert hk.LAUNCHES["spmm_ell"] == before + 1
+    assert got.shape == (n_seg, t, c)
+    torch.testing.assert_close(got, seg.segment_sum_planned(msgs, *ops),
+                               rtol=1e-5, atol=1e-5)

@@ -15,8 +15,8 @@ _SCRIPT = textwrap.dedent("""
     import sys
     import numpy as np
     import linkpred_tpu_torch
-    from linkpred_tpu.data import io
-    from linkpred_tpu.data.twowl import build_twowl_data
+    from linkpred_tpu_torch.data import io
+    from linkpred_tpu_torch.data.twowl import build_twowl_data
     from linkpred_tpu_torch.models import twowl as m
     from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
 
@@ -27,13 +27,12 @@ _SCRIPT = textwrap.dedent("""
     res = tp.train_routine_fused(data, cfg, tp.TwoWLRunConfig(epochs=2), "cpu")
     assert np.isfinite(res["loss_history"]).all(), res["loss_history"]
     assert 0.0 <= res["test_auc"] <= 1.0
-    assert "jax" not in sys.modules and "optax" not in sys.modules
+    assert_port_stands_alone()
     print("JAX-FREE OK")
 """)
 
 
-# the GCN slice: its host builders import `benchmarks.scaling` (a namespace
-# package at the root of the checkout) and `linkpred_tpu.data`, both JAX-free
+# the GCN slice: its host modules are the port's own copies too
 _GCN_SCRIPT = textwrap.dedent("""
     import sys
     import numpy as np
@@ -44,13 +43,28 @@ _GCN_SCRIPT = textwrap.dedent("""
     res = gs.train_collab(cfg, device="cpu", verbose=False)
     assert np.isfinite(res["loss_first_quarter"]), res
     assert 0.0 <= res["test_auc"] <= 1.0
-    assert "benchmarks.scaling" in sys.modules
-    assert "jax" not in sys.modules and "optax" not in sys.modules
+    assert "linkpred_tpu_torch.data.synth" in sys.modules
+    assert_port_stands_alone()
     print("JAX-FREE OK")
 """)
 
 
+# no module of the JAX package, of the earlier benchmarks, of jax or of optax
+# may be loaded by a run of the port
+_PRELUDE = textwrap.dedent("""
+    import sys
+
+    def assert_port_stands_alone():
+        foreign = sorted(
+            name for name in sys.modules
+            if name.split(".")[0] in ("linkpred_tpu", "benchmarks", "jax",
+                                      "jaxlib", "optax"))
+        assert not foreign, foreign
+""")
+
+
 def _run_without_jax(script):
+    script = _PRELUDE + script
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,

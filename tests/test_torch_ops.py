@@ -140,10 +140,11 @@ class TestSpmmEll:
         np.testing.assert_array_equal(_np(got)[::3], 0.0)
 
     def test_cpu_tensors_do_not_count_launches(self):
-        before = dict(hk.LAUNCHES)
+        before, by_width = dict(hk.LAUNCHES), dict(hk.LAUNCHES_BY_WIDTH)
         hk.spmm_ell(torch.zeros((2, 1), dtype=torch.int32),
                     torch.ones((2, 1)), torch.ones((1, 4)))
         assert hk.LAUNCHES == before
+        assert hk.LAUNCHES_BY_WIDTH == by_width
 
     def test_no_nvcc_raises(self, monkeypatch, tmp_path):
         """A kernel that cannot be built raises; nothing falls back."""
@@ -224,6 +225,44 @@ class TestAggregations:
             msgs, cot)
         np.testing.assert_allclose(vt, vj, rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(gt, gj, rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_segment_sum_ell_without_zero_row(self, seed, monkeypatch):
+        """Trial-major messages `[S, T, C]` with sentinel slots: K1 gets the
+        messages as they are (no copy with a zero row appended; the
+        sentinel `S` lies outside their rows and is dropped), and the sum
+        equals the planned bucket-sum and the reference's one-hot Pallas
+        segment sum (interpret mode) to 1e-6."""
+        rng = np.random.default_rng(seed)
+        n_slots, n_seg, t, c = 300, 40, 3, 4
+        ids = _ids(rng, n_slots, n_seg)
+        msgs = rng.standard_normal((n_slots, t, c)).astype(np.float32)
+        cot = rng.standard_normal((n_seg, t, c)).astype(np.float32)
+        pj = jseg.SegmentPlan.build(ids, n_seg)
+        pt = tseg.SegmentPlan.build(ids, n_seg)
+        slots_t, w_t = pt.ell_operands("cpu")
+        assert int(slots_t.max()) == n_slots  # sentinel slots are there
+        seen = []
+        monkeypatch.setattr(
+            tseg, "spmm_ell",
+            lambda nbr, w, x: seen.append(x.shape) or hk.spmm_ell(nbr, w, x))
+        v_ell, g_ell = _torch_value_and_grad(
+            lambda x: tseg.segment_sum_ell(n_seg, x, pt.operands("cpu")[0],
+                                           slots_t, w_t), msgs, cot)
+        assert seen == [(n_slots, t * c)]
+        v_plan, g_plan = _torch_value_and_grad(
+            lambda x: tseg.segment_sum_planned(x, *pt.operands("cpu")),
+            msgs, cot)
+        slots_j, valid_j = pj.ell_operands()
+        flat, cot_flat = msgs.reshape(n_slots, -1), cot.reshape(n_seg, -1)
+        v_j, g_j = _jax_value_and_grad(
+            lambda x: jseg.segment_sum_onehot(n_seg, x, pj.operands()[0],
+                                              slots_j, valid_j, True),
+            flat, cot_flat)
+        for got, ref in ((v_ell, v_plan), (g_ell, g_plan),
+                         (v_ell.reshape(n_seg, -1), v_j),
+                         (g_ell.reshape(n_slots, -1), g_j)):
+            np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
     def test_segment_sum_ell_checks_rows(self):
         ids, msgs, _ = _segment_case(3)

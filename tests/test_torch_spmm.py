@@ -121,6 +121,11 @@ def test_operands_flatten_the_buckets():
     # degree-0 nodes map to the zero row past the concat rows
     n_rows = sum(r for r, _ in shapes)
     assert (inv_perm.numpy()[np.asarray(g.degree) == 0] == n_rows).all()
+    # the optional launch order: a permutation of the rows, widest bucket first
+    order = hk.launch_order(inv_perm.numpy())
+    assert order.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(order), np.arange(g.num_nodes))
+    assert (np.diff(inv_perm.numpy()[order]) <= 0).all()
 
 
 # ---------------------------------------------------------------------------

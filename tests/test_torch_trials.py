@@ -187,7 +187,7 @@ def test_k3_composed_operands_equal_jax_buckets(fb_data, direction):
     for s in (fb_data.train, fb_data.val, fb_data.test):
         ops_j = jm.SplitArrays.from_split(s).e1_cops[direction]
         ops_t = tm.SplitArrays.from_split(s, "cpu").e1_cops[direction]
-        inv_perm, shapes, nbr, w = ops_t.k3
+        inv_perm, shapes, nbr, w, order = ops_t.k3
         assert inv_perm.dtype == nbr.dtype == torch.int32
         assert w.dtype == torch.float32
         assert all(a.is_contiguous() for a in (inv_perm, nbr, w))
@@ -197,6 +197,11 @@ def test_k3_composed_operands_equal_jax_buckets(fb_data, direction):
             nbr.numpy(),
             np.concatenate([np.asarray(b).reshape(-1) for b in ops_j[1]]))
         assert (w == 1).all() and w.shape == nbr.shape
+        # the launch order: a permutation of the rows, widest bucket first
+        assert order.dtype == torch.int32 and order.is_contiguous()
+        np.testing.assert_array_equal(np.sort(order.numpy()),
+                                      np.arange(inv_perm.shape[0]))
+        assert (np.diff(inv_perm.numpy()[order.numpy()]) <= 0).all()
 
 
 @pytest.mark.parametrize("f", [32, 96])
