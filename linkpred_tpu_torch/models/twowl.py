@@ -15,9 +15,11 @@ reference's sweep does: features are `[rows, T, C]`, so each gather and
 both aggregations serve all T trials in one call (K1 on `[S, T*C]`, K3 on
 `[R, T*2C]`), with a per-trial Adam written on tensors.
 
-Not ported yet: the unpaired 2-WL branch (the reference takes it only
-without `e1_cops`, which `from_split` always builds) and
-`compute_dtype='bf16'`.
+`compute_dtype='bf16'` runs the 2-WL stack of the single-trial `forward` in
+bfloat16 (the 1-WL stack, the normalisation factors' arithmetic and every
+GraphNorm statistic stay f32). The unpaired 2-WL branch, one planned
+segment sum per direction, is taken for `SplitArrays.from_split(...,
+paired=False)`; it is the semantic check of the paired path.
 """
 
 from __future__ import annotations
@@ -75,10 +77,7 @@ class TwoWLConfig:
         if self.agg_1wl not in ("plan", "ell"):
             raise ValueError(f"agg_1wl must be 'plan' or 'ell', got "
                              f"{self.agg_1wl!r}")
-        if self.compute_dtype == "bf16":
-            raise NotImplementedError(
-                "compute_dtype='bf16' is not ported yet")
-        if self.compute_dtype != "f32":
+        if self.compute_dtype not in ("f32", "bf16"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
 
 
@@ -163,6 +162,36 @@ def adam(params: dict, learning_rate: float) -> torch.optim.Adam:
     return torch.optim.Adam(tree_leaves(params), lr=learning_rate, eps=1e-8)
 
 
+def warmup_cosine_schedule(init_value: float, peak_value: float,
+                           warmup_steps: int, decay_steps: int,
+                           end_value: float = 0.0):
+    """optax's `warmup_cosine_decay_schedule` as a function of the step
+    (an int or an integer array) -> learning rate, float64: linear from
+    `init_value` to `peak_value` over `warmup_steps`, then a cosine from
+    `peak_value` to `end_value` that ends at step `decay_steps`. optax's
+    Adam reads its schedule at its own count, which starts at 0: step k
+    of a run (0-based) trains at `schedule(k)`."""
+    cosine_steps = decay_steps - warmup_steps
+    if warmup_steps < 0 or cosine_steps <= 0:
+        raise ValueError("warmup_cosine_schedule needs 0 <= warmup_steps < "
+                         f"decay_steps, got {warmup_steps}, {decay_steps}")
+    alpha = end_value / peak_value
+
+    def schedule(step):
+        step = np.asarray(step, dtype=np.float64)
+        if warmup_steps > 0:
+            frac = 1.0 - np.clip(step, 0, warmup_steps) / warmup_steps
+            warm = (init_value - peak_value) * frac + peak_value
+        else:
+            warm = np.full_like(step, peak_value)
+        count = np.clip(step - warmup_steps, 0, cosine_steps)
+        cosine = 0.5 * (1.0 + np.cos(np.pi * count / cosine_steps))
+        decayed = peak_value * ((1.0 - alpha) * cosine + alpha)
+        return np.where(step < warmup_steps, warm, decayed)
+
+    return schedule
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -186,17 +215,19 @@ def gcn_conv(p: dict, x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     loop + b. `norm` is a precomputed (edge_coeff, self_coeff) pair; `plan`
     the `SegmentPlan.operands` of `dst`; `ell` the plan's
     `ell_operands`, which routes the aggregation through kernel K1."""
-    h = x @ p["w"]
+    h = x @ p["w"].to(x.dtype)
     coeff, self_coeff = norm if norm is not None else gcn_norm_coefficients(
         src, dst, num_rows, mask, plan=plan)
-    msgs = h[src] * coeff[:, None]
+    # coefficients and bias follow the feature dtype: an f32 operand would
+    # promote a bf16 2-WL stack back to f32
+    msgs = h[src] * coeff.to(h.dtype)[:, None]
     if ell is not None:
         agg = segment_sum_ell(num_rows, msgs, plan[0], *ell)
     elif plan is not None:
         agg = segment_sum_planned(msgs, *plan)
     else:
         agg = segment_sum(msgs, dst, num_rows)
-    return agg + self_coeff[:, None] * h + p["b"]
+    return agg + self_coeff.to(h.dtype)[:, None] * h + p["b"].to(h.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,8 +247,19 @@ class SplitArrays:
     msg_sweight: torch.Tensor  # [N, W] float32, 1 on valid slots
     # direction-1 composed structures (fwd_ops, bwd_ops), each a
     # `ComposedOps`; direction 2 rides the same gather through the parity
-    # pairing in `forward`
+    # pairing in `forward`. Empty for `paired=False`
     e1_cops: tuple
+    # the unpaired branch's structures, only for `paired=False`: per
+    # direction the slots' message-edge id, sorted destination row (pads =
+    # R) and validity, and the `SegmentPlan.operands` of the destinations
+    e1_src: torch.Tensor | None = None  # [S]; dir-1 source row = e1_src ^ 1
+    e1_dst: torch.Tensor | None = None
+    e1_mask: torch.Tensor | None = None
+    e2_src: torch.Tensor | None = None  # [S]; dir-2 source row
+    e2_dst: torch.Tensor | None = None
+    e2_mask: torch.Tensor | None = None
+    e1_plan: tuple = ()
+    e2_plan: tuple = ()
 
     @property
     def num_msg(self) -> int:
@@ -228,23 +270,40 @@ class SplitArrays:
         return self.pos1_src.shape[0]
 
     @staticmethod
-    def from_split(s, device) -> "SplitArrays":
+    def from_split(s, device, paired: bool = True) -> "SplitArrays":
+        """The split's arrays on `device`. `paired` (the default, and what
+        every pipeline runs) builds the composed operands of the paired 2-WL
+        path; `paired=False` leaves them empty and uploads the two
+        directions' slot arrays and destination plans instead, so that
+        `forward` takes the unpaired branch."""
         R = len(s.pos1)
         msg_plan = SegmentPlan.build(s.msg[s.msg_perm][:, 1], s.num_nodes)
         e1_plan = SegmentPlan.build(s.e1_dst, R)
-        # dir-1 slot (a, b) gathers row a^1; pads carry R, the zero row
-        src1 = np.where(s.e1_mask, s.e1_src ^ 1, R)
-        e1_gather_plan = SegmentPlan.build(src1, R)
-        e1_cops = (
-            composed_operands(e1_plan, src1, R, device),
-            composed_operands(e1_gather_plan,
-                              np.where(s.e1_mask, s.e1_dst, R), R, device),
-        )
         slots, sweight = msg_plan.ell_operands(device)
 
         def long(a):
             return torch.as_tensor(np.asarray(a), dtype=torch.long,
                                    device=device)
+
+        if paired:
+            # dir-1 slot (a, b) gathers row a^1; pads carry R, the zero row
+            src1 = np.where(s.e1_mask, s.e1_src ^ 1, R)
+            e1_gather_plan = SegmentPlan.build(src1, R)
+            two_wl = dict(e1_cops=(
+                composed_operands(e1_plan, src1, R, device),
+                composed_operands(e1_gather_plan,
+                                  np.where(s.e1_mask, s.e1_dst, R), R, device),
+            ))
+        else:
+            two_wl = dict(
+                e1_cops=(),
+                e1_src=long(s.e1_src), e1_dst=long(s.e1_dst),
+                e1_mask=torch.as_tensor(s.e1_mask, device=device),
+                e2_src=long(s.e2_src), e2_dst=long(s.e2_dst),
+                e2_mask=torch.as_tensor(s.e2_mask, device=device),
+                e1_plan=e1_plan.operands(device),
+                e2_plan=SegmentPlan.build(s.e2_dst, R).operands(device),
+            )
 
         return SplitArrays(
             msg_src_s=long(s.msg[s.msg_perm, 0]),
@@ -255,7 +314,7 @@ class SplitArrays:
             msg_plan=msg_plan.operands(device),
             msg_slots=slots,
             msg_sweight=sweight,
-            e1_cops=e1_cops,
+            **two_wl,
         )
 
 
@@ -286,6 +345,26 @@ def _paired_norm(arrays: SplitArrays, msg_mask: torch.Tensor,
     dinv1 = torch.rsqrt(deg1.clamp(min=1e-12))
     mA = dinv1 * rm1
     return dinv1, _swap(dinv1), mA, _swap(mA)
+
+
+def _unpaired_norms(arrays: SplitArrays, msg_mask: torch.Tensor) -> tuple:
+    """Per direction of the unpaired 2-WL path (`from_split(...,
+    paired=False)`): (source rows [S], the GCN normalisation (slot coeff
+    [S], self coeff [R]) under `msg_mask`, the destination plan). A slot is
+    live while its message edge is; a pad's destination R is clamped for
+    the coefficient gather and its coefficient is masked to 0."""
+    R = arrays.num_rows
+    out = []
+    for src_row, e_src, e_dst, e_mask, plan in (
+            (arrays.e1_src ^ 1, arrays.e1_src, arrays.e1_dst, arrays.e1_mask,
+             arrays.e1_plan),
+            (arrays.e2_src, arrays.e2_src, arrays.e2_dst, arrays.e2_mask,
+             arrays.e2_plan)):
+        live = e_mask & msg_mask[e_src]
+        norm = gcn_norm_coefficients(src_row, e_dst.clamp(max=R - 1), R, live,
+                                     plan=plan)
+        out.append((src_row, norm, plan))
+    return tuple(out)
 
 
 def forward(params: dict, cfg: TwoWLConfig, node_deg: torch.Tensor,
@@ -324,33 +403,55 @@ def forward(params: dict, cfg: TwoWLConfig, node_deg: torch.Tensor,
         if cfg.act1 if last else cfg.act0:
             x = torch.relu(x)
 
-    e = edge_hadamard(arrays.pos1_src, arrays.pos1_dst, x)
+    # the edge rows in the 2-WL compute dtype: everything below runs over
+    # the S-slot ei2 structure, where bf16 halves every gathered byte
+    cd = torch.bfloat16 if cfg.compute_dtype == "bf16" else torch.float32
+    e = edge_hadamard(arrays.pos1_src, arrays.pos1_dst, x).to(cd)
 
-    # PAIRED 2-WL path (the reference's derivation, `forward` in
-    # linkpred_tpu/models/twowl.py): the slot coefficient dinv[src] *
-    # dinv[dst] * mask factorises into row-wise multiplies, and direction 2
-    # enumerates the parity image of direction 1's slots, so packing row r
-    # as [hA[r] * mA[r] || hB[r^1] * mB[r^1]] makes ONE 2C-channel
-    # composed gather produce both directions.
-    C2 = cfg.channels_2wl
-    dinv1, dinv2, mA, mB = _paired_norm(arrays, msg_mask, kernel)
-    outA, outB = dinv1[:, None], dinv2[:, None]
-    selfA, selfB = (dinv1 * dinv1)[:, None], (dinv2 * dinv2)[:, None]
+    if arrays.e1_cops:
+        # PAIRED 2-WL path (the reference's derivation, `forward` in
+        # linkpred_tpu/models/twowl.py): the slot coefficient dinv[src] *
+        # dinv[dst] * mask factorises into row-wise multiplies, and
+        # direction 2 enumerates the parity image of direction 1's slots, so
+        # packing row r as [hA[r] * mA[r] || hB[r^1] * mB[r^1]] makes ONE
+        # 2C-channel composed gather produce both directions. The factors
+        # are computed in f32 and cast once.
+        C2 = cfg.channels_2wl
+        dinv1, dinv2, mA, mB = _paired_norm(arrays, msg_mask, kernel)
+        mA, mB = mA.to(cd)[:, None], mB.to(cd)[:, None]
+        outA, outB = dinv1.to(cd)[:, None], dinv2.to(cd)[:, None]
+        selfA = (dinv1 * dinv1).to(cd)[:, None]
+        selfB = (dinv2 * dinv2).to(cd)[:, None]
 
-    for i in range(cfg.depth2):
-        lA, lB = params["conv2"][i], params["conv2r"][i]
-        hA = e @ lA["w"]
-        hB = e @ lB["w"]
-        h2 = torch.cat([hA * mA[:, None], _swap(hB * mB[:, None])], dim=1)
-        out = gather_sum_composed(h2, *arrays.e1_cops, kernel)
-        hA = out[:, :C2] * outA + selfA * hA + lA["b"]
-        hB = _swap(out[:, C2:]) * outB + selfB * hB + lB["b"]
-        hA = torch.relu(drop(graph_norm(lA["gn"], hA, cfg.eps), cfg.dp_2wl))
-        hB = torch.relu(drop(graph_norm(lB["gn"], hB, cfg.eps), cfg.dp_2wl))
-        e = hA + hB
+        for i in range(cfg.depth2):
+            lA, lB = params["conv2"][i], params["conv2r"][i]
+            hA = e @ lA["w"].to(cd)
+            hB = e @ lB["w"].to(cd)
+            h2 = torch.cat([hA * mA, _swap(hB * mB)], dim=1)
+            out = gather_sum_composed(h2, *arrays.e1_cops, kernel)
+            hA = out[:, :C2] * outA + selfA * hA + lA["b"].to(cd)
+            hB = _swap(out[:, C2:]) * outB + selfB * hB + lB["b"].to(cd)
+            hA = torch.relu(drop(graph_norm(lA["gn"], hA, cfg.eps),
+                                 cfg.dp_2wl))
+            hB = torch.relu(drop(graph_norm(lB["gn"], hB, cfg.eps),
+                                 cfg.dp_2wl))
+            e = hA + hB
+    else:
+        # UNPAIRED path: one GCN convolution per direction over its own
+        # sorted slots, on the plain planned segment sum
+        R = arrays.num_rows
+        branches = _unpaired_norms(arrays, msg_mask)
+        for i in range(cfg.depth2):
+            parts = []
+            for layer, (src, norm, plan) in zip(
+                    (params["conv2"][i], params["conv2r"][i]), branches):
+                h = gcn_conv(layer, e, src, None, R, norm=norm, plan=plan)
+                h = drop(graph_norm(layer["gn"], h, cfg.eps), cfg.dp_2wl)
+                parts.append(torch.relu(h))
+            e = parts[0] + parts[1]
 
     sel = e[sel_idx]
-    paired = sel[0::2] * sel[1::2]
+    paired = (sel[0::2] * sel[1::2]).float()
     return (paired @ params["pred_w"] + params["pred_b"])[:, 0]
 
 
@@ -418,7 +519,8 @@ def train_loop(params: dict, optimizer: torch.optim.Optimizer,
                pos_ids_epochs: torch.Tensor, neg_ids_epochs: torch.Tensor,
                trn: SplitArrays, val: SplitArrays, val_y: torch.Tensor,
                node_deg: torch.Tensor, cfg: TwoWLConfig, num_nodes: int,
-               early_stop: int | None = None):
+               early_stop: int | None = None, eval_every: int = 1,
+               init_best: tuple | None = None, lr_schedule=None):
     """The reference's `train_scan` as an epoch loop on the device: per
     epoch a masked train step and a val eval with on-device AUC; the
     best-val parameters are kept by a select, with no host round trip.
@@ -427,6 +529,15 @@ def train_loop(params: dict, optimizer: torch.optim.Optimizer,
     <= `early_stop`, and skipped epochs keep the reference's (loss 0,
     auc -1) history markers. The host keeps an upper bound on that counter
     and reads the device value only when the bound passes `early_stop`.
+
+    `eval_every` > 1 scores the val split only on epochs with `epoch %
+    eval_every == eval_every - 1` (the epoch counted within this call); the
+    others log auc -1 and count as not improved. `init_best` =
+    (best_params, best_auc[, since_best]) carries the best of an earlier
+    call, so a run can be cut into several calls; its parameters are
+    updated in place. `lr_schedule`, a host sequence of this call's
+    per-epoch learning rates, is written into the optimizer's param groups
+    before each step.
 
     Returns (best_params, best_val_auc, since_best, (losses [E], aucs [E])).
     """
@@ -437,33 +548,41 @@ def train_loop(params: dict, optimizer: torch.optim.Optimizer,
                                        device=device)
     val_msg_mask = torch.ones(num_msg_v, dtype=torch.bool, device=device)
 
-    best_params = tree_map(lambda p: p.detach().clone(), params)
+    if init_best is None:
+        init_best = (tree_map(lambda p: p.detach().clone(), params), 0.0)
+    best_params, best_auc, since = (*init_best, 0)[:3]
     best_leaves, leaves = tree_leaves(best_params), tree_leaves(params)
-    best_auc = torch.zeros((), device=device)
-    since = torch.zeros((), dtype=torch.long, device=device)
+    best_auc = torch.as_tensor(best_auc, dtype=torch.float32, device=device)
+    since_bound = int(since)  # host-side upper bound on `since`
+    since = torch.as_tensor(since, dtype=torch.long, device=device)
     losses = torch.zeros(E, device=device)
     aucs = torch.full((E,), -1.0, device=device)
-    since_bound = 0  # host-side upper bound on `since`
     for epoch in range(E):
         if early_stop is not None and since_bound > early_stop:
             since_bound = int(since)
             if since_bound > early_stop:
                 since = since + (E - epoch)  # the reference counts frozen epochs
                 break
+        if lr_schedule is not None:
+            for group in optimizer.param_groups:
+                group["lr"] = float(lr_schedule[epoch])
         loss, _, _ = train_step(params, optimizer, generator,
                                 pos_ids_epochs[epoch], neg_ids_epochs[epoch],
                                 trn, cfg, num_nodes)
         with torch.no_grad():
-            logits = forward(params, cfg, node_deg, val, val_msg_mask,
-                             val_sel)
-            auc = roc_auc(val_y, logits)
-            improved = auc > best_auc
-            for b, p in zip(best_leaves, leaves):
-                b.copy_(torch.where(improved, p, b))
-            best_auc = torch.where(improved, auc, best_auc)
-            since = torch.where(improved, 0, since + 1)
             losses[epoch] = loss
-            aucs[epoch] = auc
+            if epoch % eval_every == eval_every - 1:
+                logits = forward(params, cfg, node_deg, val, val_msg_mask,
+                                 val_sel)
+                auc = roc_auc(val_y, logits)
+                improved = auc > best_auc
+                for b, p in zip(best_leaves, leaves):
+                    b.copy_(torch.where(improved, p, b))
+                best_auc = torch.where(improved, auc, best_auc)
+                since = torch.where(improved, 0, since + 1)
+                aucs[epoch] = auc
+            else:
+                since = since + 1
         since_bound += 1
     return best_params, best_auc, since, (losses, aucs)
 
@@ -583,9 +702,10 @@ def forward_trials(params: dict, cfg: TwoWLConfig, node_deg: torch.Tensor,
 
     The arguments of `forward`, with trial-major `params`
     (`init_params_trials`); `generator` turns on dropout at the per-trial
-    `rates`. Only the paired 2-WL branch is ported, as in `forward`: its
-    composed gather-sum carries both directions of all T trials as one
-    `[R, T*2C]` call."""
+    `rates`. The paired 2-WL branch's composed gather-sum carries both
+    directions of all T trials as one `[R, T*2C]` call; the unpaired one
+    (`from_split(..., paired=False)`) runs a planned segment sum per
+    direction. f32 only, as in the reference."""
     train = generator is not None
     N = node_deg.shape[0]
     kernel = cfg.agg_1wl == "ell"
@@ -612,26 +732,40 @@ def forward_trials(params: dict, cfg: TwoWLConfig, node_deg: torch.Tensor,
 
     e = edge_hadamard(arrays.pos1_src, arrays.pos1_dst, x)  # [R, T, C]
 
-    C2 = cfg.channels_2wl
-    dinv1, dinv2, mA, mB = _paired_norm(arrays, msg_mask, kernel)
-    mA, mB = mA[:, None, None], mB[:, None, None]
-    outA, outB = dinv1[:, None, None], dinv2[:, None, None]
-    selfA = (dinv1 * dinv1)[:, None, None]
-    selfB = (dinv2 * dinv2)[:, None, None]
-    for i in range(cfg.depth2):
-        lA, lB = params["conv2"][i], params["conv2r"][i]
-        hA = torch.einsum("rtc,tcd->rtd", e, lA["w"])
-        hB = torch.einsum("rtc,tcd->rtd", e, lB["w"])
-        h2 = torch.cat([hA * mA, _swap(hB * mB)], dim=-1)
-        out = gather_sum_composed(h2, *arrays.e1_cops, kernel)
-        hA = out[..., :C2] * outA + selfA * hA + lA["b"][None]
-        hB = _swap(out[..., C2:]) * outB + selfB * hB + lB["b"][None]
-        hA = graph_norm(lA["gn"], hA, cfg.eps)
-        hB = graph_norm(lB["gn"], hB, cfg.eps)
-        if train:
-            hA = _dropout_trials(generator, hA, rates.dp_2wl)
-            hB = _dropout_trials(generator, hB, rates.dp_2wl)
-        e = torch.relu(hA) + torch.relu(hB)
+    if arrays.e1_cops:
+        C2 = cfg.channels_2wl
+        dinv1, dinv2, mA, mB = _paired_norm(arrays, msg_mask, kernel)
+        mA, mB = mA[:, None, None], mB[:, None, None]
+        outA, outB = dinv1[:, None, None], dinv2[:, None, None]
+        selfA = (dinv1 * dinv1)[:, None, None]
+        selfB = (dinv2 * dinv2)[:, None, None]
+        for i in range(cfg.depth2):
+            lA, lB = params["conv2"][i], params["conv2r"][i]
+            hA = torch.einsum("rtc,tcd->rtd", e, lA["w"])
+            hB = torch.einsum("rtc,tcd->rtd", e, lB["w"])
+            h2 = torch.cat([hA * mA, _swap(hB * mB)], dim=-1)
+            out = gather_sum_composed(h2, *arrays.e1_cops, kernel)
+            hA = out[..., :C2] * outA + selfA * hA + lA["b"][None]
+            hB = _swap(out[..., C2:]) * outB + selfB * hB + lB["b"][None]
+            hA = graph_norm(lA["gn"], hA, cfg.eps)
+            hB = graph_norm(lB["gn"], hB, cfg.eps)
+            if train:
+                hA = _dropout_trials(generator, hA, rates.dp_2wl)
+                hB = _dropout_trials(generator, hB, rates.dp_2wl)
+            e = torch.relu(hA) + torch.relu(hB)
+    else:
+        branches = _unpaired_norms(arrays, msg_mask)
+        for i in range(cfg.depth2):
+            parts = []
+            for layer, (src, norm, plan) in zip(
+                    (params["conv2"][i], params["conv2r"][i]), branches):
+                h = _gcn_conv_trials(layer, e, src, norm, arrays.num_rows,
+                                     plan)
+                h = graph_norm(layer["gn"], h, cfg.eps)
+                if train:
+                    h = _dropout_trials(generator, h, rates.dp_2wl)
+                parts.append(torch.relu(h))
+            e = parts[0] + parts[1]
 
     sel = e[sel_idx]  # [B, T, C]
     paired = sel[0::2] * sel[1::2]

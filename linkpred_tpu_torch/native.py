@@ -4,9 +4,12 @@ of `linkpred_tpu/native.py` that the port's data modules call.
 The port builds its own library from the same source, with `g++`, into the
 ignored `build/native/` directory at the root of the checkout (never to
 `native/libgraphlib.so`, which belongs to the JAX package), named by a hash
-of the source and the flags. `sample_negatives` is the one entry point the
-port's host modules use; `data.split.negative_sampling` falls back to its
-numpy sampler when no compiler is at hand.
+of the source and the flags. The port's host modules use three entry points:
+`sample_negatives` (`data.split.negative_sampling` falls back to its numpy
+sampler when no compiler is at hand), and for node2vec `build_alias_rows`
+(numpy fallback: `ops.walk.alias_setup_rows`) and `edge_bias_probs` (raises
+without the library; `ops.walk.AliasTables.build` then takes its numpy
+path).
 """
 
 from __future__ import annotations
@@ -97,3 +100,58 @@ def sample_negatives(exclude_pairs, num_nodes: int, num_samples: int, seed: int 
     if got < num_samples:
         raise ValueError(f"sampled only {got}/{num_samples} negatives")
     return out.astype(np.int64)
+
+
+def _i32(a):
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def build_alias_rows(probs, valid):
+    """Vose alias tables per row in C++; the contract of
+    `linkpred_tpu_torch.ops.walk.alias_setup_rows`."""
+    lib = load_library()
+    if lib is None:
+        from linkpred_tpu_torch.ops.walk import alias_setup_rows
+
+        return alias_setup_rows(probs, valid)
+    probs = np.ascontiguousarray(probs, dtype=np.float64)
+    deg = np.ascontiguousarray(valid.sum(axis=1), dtype=np.int32)
+    r, d = probs.shape
+    J = np.zeros((r, d), dtype=np.int32)
+    q = np.zeros((r, d), dtype=np.float32)
+    lib.build_alias_rows(
+        _ptr(probs, ctypes.c_double), _ptr(deg, ctypes.c_int32),
+        ctypes.c_int64(r), ctypes.c_int32(d),
+        _ptr(J, ctypes.c_int32), _ptr(q, ctypes.c_float),
+    )
+    return J, q
+
+
+def edge_bias_probs(src, dst, nbr, mask, indptr, indices, p: float, q: float,
+                    nbr_weight=None):
+    """p/q-biased neighbor probabilities per directed edge (node2vec's
+    2nd-order walk bias): [E, D] float64. `nbr_weight` ([N, D] float32 in
+    ELL layout) scales each neighbor's bias by the edge weight. Raises
+    without the library."""
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError("native library unavailable; use the numpy path")
+    src, dst, nbr_c = _i32(src), _i32(dst), _i32(nbr)
+    mask_c = np.ascontiguousarray(mask, dtype=np.uint8)
+    if nbr_weight is not None:
+        w_c = np.ascontiguousarray(nbr_weight, dtype=np.float32)
+        w_ptr = _ptr(w_c, ctypes.c_float)
+    else:
+        w_ptr = ctypes.POINTER(ctypes.c_float)()
+    indptr_c, indices_c = _i32(indptr), _i32(indices)
+    out = np.zeros((len(src), nbr.shape[1]), dtype=np.float64)
+    lib.edge_bias_probs(
+        _ptr(src, ctypes.c_int32), _ptr(dst, ctypes.c_int32),
+        ctypes.c_int64(len(src)),
+        _ptr(nbr_c, ctypes.c_int32), _ptr(mask_c, ctypes.c_uint8),
+        w_ptr, ctypes.c_int32(nbr.shape[1]),
+        _ptr(indptr_c, ctypes.c_int32), _ptr(indices_c, ctypes.c_int32),
+        ctypes.c_double(p), ctypes.c_double(q),
+        _ptr(out, ctypes.c_double),
+    )
+    return out

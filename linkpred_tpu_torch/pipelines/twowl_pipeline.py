@@ -16,8 +16,9 @@ counterpart of `linkpred_tpu/pipelines/twowl_pipeline.py`.
 The batch schedules and the refine draws come from the same numpy streams
 as in the JAX package (`np.random.default_rng(run.seed)`, and `run.seed +
 17` for a refine), so both see the same batches and sample the same
-configurations. Not ported yet: the unfused `train_routine`, the ROC PNG
-and the parameter checkpoint.
+configurations. `train_routine` is the unfused per-epoch host loop;
+`run_twowl` also writes the best parameters as a checkpoint and, when given
+a path, the ROC plot.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from linkpred_tpu_torch.data import io
 from linkpred_tpu_torch.data.twowl import (TwoWLData, TwoWLSplit,
                                            build_twowl_data)
 from linkpred_tpu_torch.models import twowl as m
-from linkpred_tpu_torch.utils import metrics, records
+from linkpred_tpu_torch.utils import checkpoint, metrics, plots, records
+from linkpred_tpu_torch.utils.progress import LiveProgress
 from linkpred_tpu_torch.utils.timer import StepTimer
 
 
@@ -96,6 +98,90 @@ def batch_schedule(data: TwoWLData, run: TwoWLRunConfig,
     return pos_ids, neg_ids
 
 
+def _seeded_start(cfg: m.TwoWLConfig, seed: int, device,
+                  params: dict | None) -> tuple:
+    """(parameters, dropout generator, optimizer) of a single-trial run:
+    `np.random.SeedSequence(seed)` draws the init on the host, unless
+    `params` replaces it, and the dropout masks on `device`."""
+    init_seed, drop_seed = np.random.SeedSequence(seed).generate_state(2)
+    if params is None:
+        params = m.init_params(
+            cfg, torch.Generator().manual_seed(int(init_seed)), device)
+    generator = torch.Generator(device=device).manual_seed(int(drop_seed))
+    return params, generator, m.adam(params, cfg.learning_rate)
+
+
+def train_routine(data: TwoWLData, cfg: m.TwoWLConfig, run: TwoWLRunConfig,
+                  device, seed: int | None = None, verbose: bool = False,
+                  params: dict | None = None,
+                  schedule: tuple | None = None) -> dict:
+    """Early-stopped training as a per-epoch host loop: a train step, the
+    val split scored and its AUC read on the host, and on every new best
+    the test split scored and timed. The unfused counterpart of
+    `train_routine_fused`; it returns the parameters of the last epoch
+    run, as the reference's does, and the per-epoch val AUC and loss.
+
+    Each epoch draws its positives, then its negatives, from
+    `np.random.default_rng(run.seed)` (the reference's order, which differs
+    from the fused loop's `batch_schedule`); `schedule`, a `(pos_ids,
+    neg_ids)` pair of `[E, P]` arrays, replaces the draws. `seed` and
+    `params` as in `train_routine_fused`."""
+    params, generator, optimizer = _seeded_start(
+        cfg, run.seed if seed is None else seed, device, params)
+    trn = m.SplitArrays.from_split(data.train, device)
+    n_pos_pairs = data.train.num_msg // 2
+    n_neg_pairs = len(data.train.pred) // 2
+    P = min(len(data.val.y), n_pos_pairs, n_neg_pairs)
+
+    def ids(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.long, device=device)
+
+    rng = np.random.default_rng(run.seed)
+    best_val, tst_score, since_best, t_eval = 0.0, 0.0, 0, 0.0
+    best_roc = (None, None)
+    evaluate(params, cfg, data, data.test, device)  # warm the timed eval
+    progress = LiveProgress(run.epochs, label="twowl") if verbose else None
+    history, loss_history = [], []
+    for epoch in range(run.epochs):
+        if schedule is None:
+            pos_ids = rng.permutation(n_pos_pairs)[:P]
+            neg_ids = rng.permutation(n_neg_pairs)[:P]
+        else:
+            pos_ids, neg_ids = schedule[0][epoch], schedule[1][epoch]
+        loss, _, _ = m.train_step(params, optimizer, generator, ids(pos_ids),
+                                  ids(neg_ids), trn, cfg, data.num_nodes)
+        val_auc, _ = evaluate(params, cfg, data, data.val, device)
+        history.append(val_auc)
+        loss_history.append(float(loss))
+        if progress is not None:
+            progress.update(epoch + 1, loss=loss_history[-1], auc=val_auc)
+        since_best += 1
+        if val_auc > best_val:
+            best_val, since_best = val_auc, 0
+            t0 = time.perf_counter()
+            tst_score, tst_scores = evaluate(params, cfg, data, data.test,
+                                             device)
+            t_eval = time.perf_counter() - t0
+            best_roc = metrics.roc_curve(data.test.y, tst_scores)[:2]
+            if verbose:
+                print(f"epoch {epoch:04d} loss {loss_history[-1]:.4f} "
+                      f"val {val_auc:.4f} tst {tst_score:.4f}")
+        if since_best > run.early_stop:
+            break
+    if progress is not None:
+        progress.close()
+    return {
+        "best_val": best_val,
+        "test_auc": tst_score,
+        "test_eval_seconds": t_eval,
+        "fpr": best_roc[0],
+        "tpr": best_roc[1],
+        "params": m.tree_map(lambda p: p.detach(), params),
+        "history": np.asarray(history, np.float32),
+        "loss_history": np.asarray(loss_history, np.float32),
+    }
+
+
 def train_routine_fused(data: TwoWLData, cfg: m.TwoWLConfig,
                         run: TwoWLRunConfig, device, seed: int | None = None,
                         verbose: bool = False, params: dict | None = None
@@ -111,13 +197,8 @@ def train_routine_fused(data: TwoWLData, cfg: m.TwoWLConfig,
     params, the per-epoch val AUC (`history`) and loss (`loss_history`),
     and the train loop's epochs and seconds.
     """
-    seed = run.seed if seed is None else seed
-    init_seed, drop_seed = np.random.SeedSequence(seed).generate_state(2)
-    if params is None:
-        params = m.init_params(
-            cfg, torch.Generator().manual_seed(int(init_seed)), device)
-    generator = torch.Generator(device=device).manual_seed(int(drop_seed))
-    optimizer = m.adam(params, cfg.learning_rate)
+    params, generator, optimizer = _seeded_start(
+        cfg, run.seed if seed is None else seed, device, params)
 
     trn = m.SplitArrays.from_split(data.train, device)
     val = m.SplitArrays.from_split(data.val, device)
@@ -451,7 +532,10 @@ def run_twowl(run: TwoWLRunConfig = TwoWLRunConfig(), n_trials: int = 10,
               state_file: str = "logs/twowl_sweep_state.jsonl",
               roc_dir: str = ".",
               metrics_file: str = "logs/metrics.jsonl",
-              refine_trials: int = 0, refine_mode: str = "flat") -> dict:
+              refine_trials: int = 0, refine_mode: str = "flat",
+              fused: bool = True, roc_png: Optional[str] = None,
+              checkpoint_path: Optional[str] = "checkpoints/twowl/model"
+              ) -> dict:
     """`n_trials`-trial random search with crash-resume: per-trial results
     append to `state_file`; on restart, completed trials replay from it
     (the RNG stream is re-drawn identically, so pending trials are
@@ -464,14 +548,22 @@ def run_twowl(run: TwoWLRunConfig = TwoWLRunConfig(), n_trials: int = 10,
     `log_file`).
 
     Writes the record file under `run.records_dir`, the best trial's
-    hyperparameters to `log_file`, its ROC to `roc_dir/{fpr,tpr}.json` and
-    a summary line to `metrics_file`. The 1-WL aggregation runs on kernel
+    hyperparameters to `log_file`, its ROC to `roc_dir/{fpr,tpr}.json`, a
+    summary line to `metrics_file`, the best parameters to
+    `checkpoint_path` (`utils.checkpoint.save_pytree`; None: no checkpoint)
+    and, when `roc_png` is a path, the ROC plot (matplotlib is then needed,
+    and its absence raises before any work is done). `fused=False` trains
+    each trial with the per-epoch host loop `train_routine` instead of
+    `train_routine_fused`. The 1-WL aggregation runs on kernel
     K1 and the 2-WL aggregation on K3 (`agg_1wl='ell'`), in the search and
     in the refine.
     """
     if refine_mode not in REFINE_MODES:
         raise ValueError(f"refine_mode must be one of {sorted(REFINE_MODES)}, "
                          f"got {refine_mode!r}")
+    if roc_png is not None:
+        plots.require_matplotlib()
+    routine = train_routine_fused if fused else train_routine
     timer = StepTimer()
     rng = np.random.default_rng(run.seed)
     done = _load_sweep_state(state_file)
@@ -518,9 +610,8 @@ def run_twowl(run: TwoWLRunConfig = TwoWLRunConfig(), n_trials: int = 10,
             trial_seconds = rec.get("seconds", 0.0)
         else:
             with timer.span(f"trial {trial}"):
-                res = train_routine_fused(data, cfg, run, device,
-                                          seed=run.seed + trial,
-                                          verbose=verbose)
+                res = routine(data, cfg, run, device, seed=run.seed + trial,
+                              verbose=verbose)
             trial_seconds = time.perf_counter() - t0
             records.write_record(
                 run.dataset, "twowl", res["test_auc"],
@@ -562,13 +653,19 @@ def run_twowl(run: TwoWLRunConfig = TwoWLRunConfig(), n_trials: int = 10,
 
     if best["result"]["params"] is None:
         # the winner was a replayed trial: retrain it once for its ROC
-        best["result"] = train_routine_fused(
+        best["result"] = routine(
             data, best["cfg"], run, device, seed=run.seed + best["trial"])
 
     with open(log_file, "w") as f:
         json.dump(best["params"], f)
-    records.write_roc_json(best["result"]["fpr"], best["result"]["tpr"],
-                           roc_dir)
+    if best["result"]["fpr"] is not None:
+        records.write_roc_json(best["result"]["fpr"], best["result"]["tpr"],
+                               roc_dir)
+        if roc_png is not None:
+            plots.plot_roc(best["result"]["fpr"], best["result"]["tpr"],
+                           best["result"]["test_auc"], "TwoWL ROC", roc_png)
+    if checkpoint_path is not None:
+        checkpoint.save_pytree(checkpoint_path, best["result"]["params"])
     records.MetricsLogger(metrics_file).log(
         family="twowl", auc=float(best["result"]["test_auc"]),
         best_val=float(best["value"]), n_trials=n_trials,

@@ -119,8 +119,10 @@ class TestConfig:
             assert getattr(ct, name) == getattr(cj, name), name
 
     def test_rejects_unported_options(self):
-        with pytest.raises(NotImplementedError):
-            tm.TwoWLConfig(max_degree=3, compute_dtype="bf16")
+        assert tm.TwoWLConfig(max_degree=3,
+                              compute_dtype="bf16").compute_dtype == "bf16"
+        with pytest.raises(ValueError):
+            tm.TwoWLConfig(max_degree=3, compute_dtype="f16")
         with pytest.raises(ValueError):
             tm.TwoWLConfig(max_degree=3, agg_1wl="pallas")
 
