@@ -119,9 +119,13 @@ def load_edgelist(
 
     Mirrors the reference node2vec CLI's read modes
     (`node2vec/src/main.py:66-76`): optional third weight column, directed
-    or symmetrized.
+    or symmetrized. A file whose first line holds a comma (the
+    fb-pages-food `.edges` dump) is read as comma-separated, which the JAX
+    package's loader does not take.
     """
-    raw = np.loadtxt(path, dtype=np.float64)
+    with open(path) as f:
+        delimiter = "," if "," in f.readline() else None
+    raw = np.loadtxt(path, dtype=np.float64, delimiter=delimiter)
     raw = raw.reshape(-1, raw.shape[-1] if raw.ndim > 1 else 2)
     e = raw[:, :2].astype(np.int64)
     w = raw[:, 2].astype(np.float32) if (weighted and raw.shape[1] > 2) else None

@@ -15,7 +15,7 @@ batch are summed exactly (`index_add_`), so there is no hogwild.
 The step bodies (`sgns_step_pooled`, `sgns_step_classic`) are functions of
 the drawn indices, apart from the draws (`sample_pairs`, `draw_noise`), so
 they can be held against the gradient of the SGNS loss. The three products
-with the pool are matrix products (`torch.matmul`). The host builders
+with the pool are matrix products (`torch.matmul`). The host-side table constructors
 (`_noise_alias`, `_keep_prob`, `prepare_sgns`) are array-equal to the JAX
 package's; the random streams are torch's.
 """
@@ -54,7 +54,7 @@ class SGNSConfig:
 
 def _noise_alias(counts: np.ndarray, ns_exponent: float):
     """Alias table over the unigram^`ns_exponent` noise distribution, by the
-    C++ builder when the host library is at hand (the Python Vose loop costs
+    C++ routine when the host library is at hand (the Python Vose loop costs
     seconds at a 235k-entry vocabulary), else `alias_setup_rows`."""
     from linkpred_tpu_torch import native
 

@@ -1,7 +1,7 @@
 """2nd-order (node2vec) biased random walks — the counterpart of
 `linkpred_tpu/ops/walk.py`.
 
-Host side (numpy, with the C++ builders of `linkpred_tpu_torch.native` when
+Host side (numpy, with the C++ routines of `linkpred_tpu_torch.native` when
 they are at hand): `alias_setup_rows` and `AliasTables.build`, array-equal to
 the JAX package's. Alias tables are built once over the padded ELL neighbor
 matrix, per node (first hop) and per directed edge (later hops, biased by

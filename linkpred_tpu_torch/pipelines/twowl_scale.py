@@ -32,7 +32,8 @@ from linkpred_tpu_torch.models import twowl as m
 from linkpred_tpu_torch.models.word2vec import SGNSConfig, train_sgns_device
 from linkpred_tpu_torch.ops.walk import WalkEngine
 from linkpred_tpu_torch.pipelines.gcn_scale import resolve_graph_source
-from linkpred_tpu_torch.pipelines.twowl_pipeline import evaluate
+from linkpred_tpu_torch.pipelines.twowl_pipeline import (evaluate,
+                                                         node_features)
 from linkpred_tpu_torch.utils.progress import LiveProgress
 
 
@@ -89,7 +90,7 @@ PROGRESS_EPOCHS = 16
 
 def build_scale_data(cfg: ScaleTwoWLConfig) -> TwoWLData:
     """The capped graph and its three TwoWL splits, on the host, array-equal
-    to the JAX package's: the same builders called in the same order on the
+    to the JAX package's: the same functions called in the same order on the
     same `np.random.default_rng(cfg.seed)`."""
     cfg, pairs_override = resolve_graph_source(cfg)
     rng = np.random.default_rng(cfg.seed)
@@ -187,53 +188,26 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_twowl_scale(cfg: ScaleTwoWLConfig = ScaleTwoWLConfig(), device=None,
-                    agg_1wl: str = "ell", verbose: bool = True) -> dict:
-    """Build, seed, train and score on `device` (default the visible card;
-    no card raises). Returns the JAX package's result keys, plus
-    `operand_seconds`, the host build and upload of the train and val
-    operands (`build_seconds` is the graph and split build alone).
-    `compile_seconds` is 0.0: nothing compiles; `epochs_per_s` is over all
-    epochs run, after `WARMUP_EPOCHS` untimed epochs on a throwaway copy of
-    the parameters."""
-    if device is None:
-        from linkpred_tpu_torch.utils.device import cuda_device
-
-        device = cuda_device()
+def train_and_score(cfg: ScaleTwoWLConfig, data: TwoWLData, arrays: tuple,
+                    params: dict, device, agg_1wl: str = "ell",
+                    verbose: bool = False) -> dict:
+    """Train `params` (in place) on `data` for `cfg.epochs` epochs and score
+    the test split with the best-val parameters. `arrays` is the (train,
+    val) pair of `SplitArrays` on `device`. The timed loop starts from the
+    given parameters after `WARMUP_EPOCHS` untimed epochs on a throwaway
+    copy of them, and is cut into calls of about `PROGRESS_EPOCHS` epochs
+    that carry the best parameters along (`train_loop(init_best=)`).
+    Returns `run_twowl_scale`'s keys but those of the build and the
+    seeding."""
     device = torch.device(device)
-
-    t0 = time.perf_counter()
-    data = build_scale_data(cfg)
-    build_seconds = time.perf_counter() - t0
-
+    trn, val = arrays
     mcfg = model_config(cfg, data, agg_1wl)
-    init_seed, n2v_seed = (int(s) for s in np.random.SeedSequence(
-        cfg.seed).generate_state(2))
-    params = m.init_params(mcfg, torch.Generator().manual_seed(init_seed),
-                           device)
-    n2v_seconds = 0.0
-    if cfg.node_feature == "n2v":
-        tn = time.perf_counter()
-        emb0 = n2v_embeddings(cfg, data, device, n2v_seed)
-        with torch.no_grad():
-            params["emb"].copy_(emb0)
-        _sync(device)
-        n2v_seconds = time.perf_counter() - tn
-
-    t0 = time.perf_counter()
-    trn = m.SplitArrays.from_split(data.train, device)
-    val = m.SplitArrays.from_split(data.val, device)
-    operand_seconds = time.perf_counter() - t0
-
     pos_ids, neg_ids = (torch.as_tensor(a, dtype=torch.long, device=device)
                         for a in batch_schedule(cfg, data))
     E = cfg.epochs
     lrs = lr_schedule(cfg)
     val_y = torch.as_tensor(data.val.y, device=device)
-    free = not mcfg.degree_feature
-    node_deg = (torch.arange(data.num_nodes, device=device) if free
-                else torch.as_tensor(data.node_deg, dtype=torch.long,
-                                     device=device))
+    node_deg = node_features(mcfg, data, device)
 
     def loop(p, opt, start, stop, best):
         return m.train_loop(
@@ -255,8 +229,8 @@ def run_twowl_scale(cfg: ScaleTwoWLConfig = ScaleTwoWLConfig(), device=None,
     t0 = time.perf_counter()
     for start in range(0, E, chunk):
         stop = min(start + chunk, E)
-        best_p, best_a, since, (losses, _) = loop(params, optimizer, start, stop,
-                                                   best)
+        best_p, best_a, since, (losses, _) = loop(params, optimizer, start,
+                                                  stop, best)
         best = (best_p, best_a, since)
         since_host = int(since)  # waits for the chunk's last kernels
         hists.append(losses.cpu().numpy())
@@ -274,7 +248,7 @@ def run_twowl_scale(cfg: ScaleTwoWLConfig = ScaleTwoWLConfig(), device=None,
     tst_auc, _ = evaluate(best[0], mcfg, data, data.test, device)
     q = max(len(losses) // 4, 1)
     first_q, last_q = float(losses[:q].mean()), float(losses[-q:].mean())
-    out = {
+    return {
         "nodes": data.num_nodes,
         "msg_edges": int(data.train.num_msg),
         "ei2_columns": int(len(data.train.e1_src)),
@@ -288,14 +262,55 @@ def run_twowl_scale(cfg: ScaleTwoWLConfig = ScaleTwoWLConfig(), device=None,
         "train_seconds": round(train_seconds, 3),
         "epochs_per_s": round(len(losses) / max(train_seconds, 1e-9), 2),
         "compile_seconds": 0.0,
-        "build_seconds": round(build_seconds, 1),
-        "operand_seconds": round(operand_seconds, 1),
-        "n2v_seconds": round(n2v_seconds, 1),
         "node_feature": cfg.node_feature,
     }
+
+
+def run_twowl_scale(cfg: ScaleTwoWLConfig = ScaleTwoWLConfig(), device=None,
+                    agg_1wl: str = "ell", verbose: bool = True) -> dict:
+    """Build, seed, train and score on `device` (default the visible card;
+    no card raises). Returns the JAX package's result keys, plus
+    `operand_seconds`, the host build and upload of the train and val
+    operands (`build_seconds` is the graph and split build alone).
+    `compile_seconds` is 0.0: nothing compiles; `epochs_per_s` is over all
+    epochs run."""
+    if device is None:
+        from linkpred_tpu_torch.utils.device import cuda_device
+
+        device = cuda_device()
+    device = torch.device(device)
+
+    t0 = time.perf_counter()
+    data = build_scale_data(cfg)
+    build_seconds = time.perf_counter() - t0
+
+    init_seed, n2v_seed = (int(s) for s in np.random.SeedSequence(
+        cfg.seed).generate_state(2))
+    params = m.init_params(model_config(cfg, data, agg_1wl),
+                           torch.Generator().manual_seed(init_seed), device)
+    n2v_seconds = 0.0
+    if cfg.node_feature == "n2v":
+        tn = time.perf_counter()
+        emb0 = n2v_embeddings(cfg, data, device, n2v_seed)
+        with torch.no_grad():
+            params["emb"].copy_(emb0)
+        _sync(device)
+        n2v_seconds = time.perf_counter() - tn
+
+    t0 = time.perf_counter()
+    arrays = (m.SplitArrays.from_split(data.train, device),
+              m.SplitArrays.from_split(data.val, device))
+    operand_seconds = time.perf_counter() - t0
+
+    out = train_and_score(cfg, data, arrays, params, device, agg_1wl, verbose)
+    out.update(build_seconds=round(build_seconds, 1),
+               operand_seconds=round(operand_seconds, 1),
+               n2v_seconds=round(n2v_seconds, 1))
     if verbose:
         print(f"twowl-scale: {cfg.nodes} nodes, "
-              f"{out['ei2_columns']} ei2 cols, loss {first_q:.4f} -> "
-              f"{last_q:.4f}, test AUC {out['test_auc']:.4f}, "
-              f"{out['epochs_per_s']} epochs/s on {device}")
+              f"{out['ei2_columns']} ei2 cols, loss "
+              f"{out['loss_first_quarter']:.4f} -> "
+              f"{out['loss_last_quarter']:.4f}, test AUC "
+              f"{out['test_auc']:.4f}, {out['epochs_per_s']} epochs/s on "
+              f"{device}")
     return out

@@ -554,3 +554,140 @@ def test_segment_sum_ell_trial_major_on_the_card(cuda):
     assert got.shape == (n_seg, t, c)
     torch.testing.assert_close(got, seg.segment_sum_planned(msgs, *ops),
                                rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# TwoWL at scale: a capped-ei2 composed layout in bf16, K1 on [N, 32] slots,
+# walks on the device
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def scale_data():
+    """A 3,000-node community graph through the scale pipeline's data build:
+    degree cap 32, ei2 cap 128, as the published config."""
+    from linkpred_tpu_torch.pipelines import twowl_scale as ts
+
+    cfg = ts.ScaleTwoWLConfig(nodes=3000, edges=15000)
+    return cfg, ts.build_scale_data(cfg)
+
+
+@pytest.mark.parametrize("direction", [0, 1], ids=["forward", "transpose"])
+def test_k3_bf16_on_capped_composed_layout(cuda, scale_data, direction):
+    """K3 in bf16 at F = 32 on the composed layout of a capped ei2
+    structure, with its launch order, against its plain version: one bf16
+    ulp of the f32 sum."""
+    _, data = scale_data
+    trn = m.SplitArrays.from_split(data.train, cuda)
+    ops = trn.e1_cops[direction]
+    assert ops.k3[4] is not None and ops.k3[4].shape[0] == trn.num_rows
+    x = _x(trn.num_rows, 32, torch.bfloat16, cuda, seed=direction)
+    before = hk.LAUNCHES["spmm_bucketed"]
+    got = hk.spmm_bucketed(x, *ops.k3)
+    assert hk.LAUNCHES["spmm_bucketed"] == before + 1
+    ref = hk.spmm_bucketed_reference(x, *ops.k3)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2**-7, atol=1e-6)
+    one = _x(trn.num_rows, 1, torch.float32, cuda, seed=2)
+    torch.testing.assert_close(hk.spmm_bucketed(one, *ops.k3),
+                               hk.spmm_bucketed_reference(one, *ops.k3),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_gather_sum_composed_bf16_grad_on_k3(cuda, scale_data):
+    _, data = scale_data
+    trn = m.SplitArrays.from_split(data.train, cuda)
+    x = _x(trn.num_rows, 32, torch.bfloat16, cuda, seed=3)
+    cot = _x(trn.num_rows, 32, torch.bfloat16, cuda, seed=4)
+    outs, grads = [], []
+    for kernel in (True, False):
+        xx = x.clone().requires_grad_()
+        out = seg.gather_sum_composed(xx, *trn.e1_cops, kernel)
+        out.backward(cot)
+        outs.append(out.detach())
+        grads.append(xx.grad)
+    assert outs[0].dtype == grads[0].dtype == torch.bfloat16
+    for a, b in (outs, grads):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2**-7, atol=1e-6)
+
+
+def test_k1_on_capped_slots_forward_and_grad(cuda, scale_data):
+    """K1 at `[N, 32]` slots (the degree cap) and F = 24."""
+    _, data = scale_data
+    trn = m.SplitArrays.from_split(data.train, cuda)
+    assert trn.msg_slots.shape == (data.num_nodes, 32)
+    x = _x(trn.num_msg, 24, torch.float32, cuda, seed=5)
+    before = hk.LAUNCHES["spmm_ell"]
+    got = hk.spmm_ell(trn.msg_slots, trn.msg_sweight, x)
+    assert hk.LAUNCHES["spmm_ell"] == before + 1
+    torch.testing.assert_close(
+        got, hk.spmm_ell_reference(trn.msg_slots, trn.msg_sweight, x),
+        rtol=1e-5, atol=1e-5)
+    cot = _x(data.num_nodes, 24, torch.float32, cuda, seed=6)
+    grads = []
+    for fn in (lambda v: seg.segment_sum_ell(data.num_nodes, v,
+                                             trn.msg_plan[0], trn.msg_slots,
+                                             trn.msg_sweight),
+               lambda v: seg.segment_sum_planned(v, *trn.msg_plan)):
+        xx = x.clone().requires_grad_()
+        fn(xx).backward(cot)
+        grads.append(xx.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
+
+
+def test_walks_valid_on_the_device(cuda, scale_data):
+    from linkpred_tpu_torch.data.graph import Graph
+    from linkpred_tpu_torch.ops.walk import WalkEngine
+
+    _, data = scale_data
+    msg = data.train.msg[::2]
+    g = Graph.from_undirected_edges(msg[:, 0], msg[:, 1],
+                                    num_nodes=data.num_nodes)
+    eng = WalkEngine(g, p=0.5, q=2.0, device=cuda)
+    walks = eng.walks(torch.Generator(device=cuda).manual_seed(0), 4, 12)
+    assert walks.is_cuda and walks.shape == (4 * g.num_nodes, 12)
+    w = walks.cpu().numpy()
+    np.testing.assert_array_equal(w[:, 0], np.tile(np.arange(g.num_nodes), 4))
+    a, b = w[:, :-1].reshape(-1), w[:, 1:].reshape(-1)
+    key = set((g.src.astype(np.int64) * g.num_nodes + g.dst).tolist())
+    hop = a.astype(np.int64) * g.num_nodes + b
+    ok = np.fromiter((h in key for h in hop.tolist()), bool, len(hop))
+    assert (ok | ((a == b) & (g.degree[a] == 0))).all()
+
+
+def test_bf16_train_step_ell_matches_plan(cuda, scale_data):
+    """One bf16 train step of the scale model on K1 and K3 against the
+    plain aggregations from the same parameters: the losses agree to bf16
+    rounding of the 2-WL stack, and every parameter moves by at most 2 lr
+    apart (Adam turns a near-zero gradient's sign into an lr-size step)."""
+    from linkpred_tpu_torch.pipelines import twowl_scale as ts
+
+    cfg, data = scale_data
+    trn = m.SplitArrays.from_split(data.train, cuda)
+    pos, neg = (torch.as_tensor(a[0], dtype=torch.long, device=cuda)
+                for a in ts.batch_schedule(
+                    dataclasses.replace(cfg, epochs=1), data))
+    start = m.init_params(ts.model_config(cfg, data, "ell"),
+                          torch.Generator().manual_seed(0), cuda)
+    losses, params = {}, {}
+    for agg in ("ell", "plan"):
+        mcfg = ts.model_config(cfg, data, agg)
+        assert mcfg.compute_dtype == "bf16"
+        p = m.tree_map(lambda t: t.detach().clone().requires_grad_(), start)
+        before = dict(hk.LAUNCHES)
+        loss, logits, _ = m.train_step(p, m.adam(p, 1e-3), None, pos, neg,
+                                       trn, mcfg, data.num_nodes)
+        launched = {k: hk.LAUNCHES[k] - before[k] for k in before}
+        if agg == "ell":
+            # K1: depth1 forward passes; K3: the degree pass and depth2
+            # forward and backward passes
+            assert launched["spmm_ell"] == 2, launched
+            assert launched["spmm_bucketed"] == 5, launched
+        else:
+            assert not any(launched.values()), launched
+        assert torch.isfinite(logits).all()
+        losses[agg], params[agg] = float(loss), p
+    assert abs(losses["ell"] - losses["plan"]) <= 2e-2 * abs(losses["plan"])
+    for a, b in zip(m.tree_leaves(params["ell"]),
+                    m.tree_leaves(params["plan"])):
+        assert float((a - b).detach().abs().max()) <= 2e-3 + 1e-6

@@ -29,6 +29,9 @@ from linkpred_tpu_torch.ops import hopper_kernels as hk
 from linkpred_tpu_torch.ops import segment as tseg
 from linkpred_tpu_torch.ops import spmm as tspmm
 
+# the suite runs several worker processes at once: one compute thread each
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "benchmarks"))
@@ -371,3 +374,127 @@ def test_kernel_ms_fails_when_no_two_captures_agree(monkeypatch):
                         next(feed))
     with pytest.raises(AssertionError, match="no two of eight"):
         cs.kernel_ms(lambda: None)
+
+
+# ---------------------------------------------------------------------------
+# node2vec's native routines, the progress line, comma-separated edge lists
+# ---------------------------------------------------------------------------
+
+
+def _walk_graph(seed, weighted):
+    rng = np.random.default_rng(seed)
+    u, v = rng.integers(0, 50, 180), rng.integers(0, 50, 180)
+    keep = u != v
+    src, dst = np.concatenate([u[keep], v[keep]]), np.concatenate(
+        [v[keep], u[keep]])
+    w = np.tile(rng.uniform(0.5, 2.0, keep.sum()).astype(np.float32), 2)
+    return tgraph.Graph.from_edges(src, dst, num_nodes=50,
+                                   weight=w if weighted else None)
+
+
+def test_native_build_alias_rows_equal():
+    if not (jnative.available() and tnative.available()):
+        pytest.skip("no C++ compiler: the alias routine is not built")
+    rng = np.random.default_rng(0)
+    probs = rng.random((200, 17))
+    valid = np.arange(17)[None, :] < rng.integers(0, 18, 200)[:, None]
+    for got, ref in zip(tnative.build_alias_rows(probs, valid),
+                        jnative.build_alias_rows(probs, valid)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_native_edge_bias_probs_equal(weighted):
+    if not (jnative.available() and tnative.available()):
+        pytest.skip("no C++ compiler: the bias routine is not built")
+    g = _walk_graph(1, weighted)
+    args = (g.src, g.dst, g.nbr, g.nbr_mask, g.indptr, g.indices, 0.25, 4.0)
+    got = tnative.edge_bias_probs(*args, nbr_weight=g.nbr_weight)
+    ref = jnative.edge_bias_probs(*args, nbr_weight=g.nbr_weight)
+    assert got.dtype == np.float64 and got.shape == (g.num_edges,
+                                                      g.nbr.shape[1])
+    np.testing.assert_array_equal(got, ref)
+    if not weighted:  # 1/p to return, 1 to a common neighbor, 1/q outward
+        assert set(np.unique(got[g.nbr_mask[g.dst]])) <= {4.0, 1.0, 0.25}
+
+
+def test_native_alias_routines_without_library(monkeypatch):
+    """Without the library `build_alias_rows` takes the numpy version and
+    `edge_bias_probs` raises (its caller then takes its numpy path)."""
+    from linkpred_tpu_torch.ops import walk as twalk
+
+    monkeypatch.setattr(tnative, "load_library", lambda: None)
+    probs = np.random.default_rng(2).random((6, 5))
+    valid = np.ones((6, 5), bool)
+    for got, ref in zip(tnative.build_alias_rows(probs, valid),
+                        twalk.alias_setup_rows(probs, valid)):
+        np.testing.assert_array_equal(got, ref)
+    g = _walk_graph(3, False)
+    with pytest.raises(RuntimeError, match="native library unavailable"):
+        tnative.edge_bias_probs(g.src, g.dst, g.nbr, g.nbr_mask, g.indptr,
+                                g.indices, 0.5, 2.0)
+    tables = twalk.AliasTables.build(g, p=0.5, q=2.0)  # the numpy path
+    assert tables.edge_J.shape == (g.num_edges, g.nbr.shape[1])
+
+
+def test_alias_tables_numpy_path_close_to_native(monkeypatch):
+    """The dense numpy path of `AliasTables.build` builds the same
+    distributions as the C++ path: the alias tables may pair slots in
+    another order, so the per-slot probabilities are compared."""
+    if not tnative.available():
+        pytest.skip("no C++ compiler")
+    from linkpred_tpu_torch.ops import walk as twalk
+
+    def slot_probs(J, q, deg):
+        out = np.zeros(J.shape)
+        for r in range(J.shape[0]):
+            for k in range(deg[r]):
+                out[r, k] += q[r, k] / deg[r]
+                out[r, J[r, k]] += (1.0 - q[r, k]) / deg[r]
+        return out
+
+    g = _walk_graph(4, True)
+    native_tab = twalk.AliasTables.build(g, p=0.25, q=4.0)
+    monkeypatch.setattr(tnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "load_library", lambda: None)
+    numpy_tab = twalk.AliasTables.build(g, p=0.25, q=4.0)
+    deg = g.nbr_mask[g.dst].sum(axis=1)
+    np.testing.assert_allclose(
+        slot_probs(numpy_tab.edge_J, numpy_tab.edge_q, deg),
+        slot_probs(native_tab.edge_J, native_tab.edge_q, deg), atol=1e-6)
+
+
+def test_live_progress_equal():
+    """The port's copy of the progress line writes what the original
+    writes, on a stream that is no terminal."""
+    import io as stdio
+
+    from linkpred_tpu.utils import progress as jprogress
+    from linkpred_tpu_torch.utils import progress as tprogress
+
+    outs = []
+    for mod in (tprogress, jprogress):
+        stream = stdio.StringIO()
+        bar = mod.LiveProgress(40, label="twowl-scale", stream=stream)
+        for step in range(1, 41):
+            bar.update(step, loss=1.0 / step,
+                       auc=0.5 + step / 100 if step % 4 == 0 else -1.0)
+        bar.close()
+        outs.append(stream.getvalue())
+        assert mod.sparkline([1, 2, float("nan"), -1.0, 3]) == \
+            tprogress.sparkline([1, 2, 3])
+    assert outs[0] == outs[1] and outs[0].count("\n") >= 10
+
+
+def test_load_edgelist_reads_comma_separated(tmp_path):
+    """The port's loader also takes the comma-separated fb-pages-food dump,
+    which the `node2vec` command is run on; the result is the whitespace
+    file's."""
+    path = os.path.join(REPO, "raw_data", "fb-pages-food",
+                        "fb-pages-food.edges")
+    pairs = np.loadtxt(path, delimiter=",", dtype=np.int64)
+    spaced = tmp_path / "fb.edgelist"
+    np.savetxt(spaced, pairs, fmt="%d")
+    _assert_fields_equal(tio.load_edgelist(path),
+                         jio.load_edgelist(str(spaced)))

@@ -34,6 +34,9 @@ from linkpred_tpu_torch.ops import spmm as tspmm
 from linkpred_tpu_torch.pipelines import gcn_scale as tgs
 from linkpred_tpu_torch.utils import profiling as tprof
 
+# the suite runs several worker processes at once: one compute thread each
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 LOSS_ATOL, AUC_ATOL = 1e-4, 2e-3
 

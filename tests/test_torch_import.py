@@ -49,6 +49,47 @@ _GCN_SCRIPT = textwrap.dedent("""
 """)
 
 
+# the logistic family (walks, SGNS, Newton fit) and TwoWL at scale, whose
+# seeding runs the same walks and SGNS; checkpoint, plots and progress too
+_LOGISTIC_SCRIPT = textwrap.dedent("""
+    import os
+    import sys
+    import tempfile
+    import numpy as np
+    from linkpred_tpu_torch.models.word2vec import SGNSConfig
+    from linkpred_tpu_torch.pipelines import logistic_pipeline as lp
+    from linkpred_tpu_torch.utils import checkpoint, plots
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = lp.LogisticConfig(
+            num_walks=4, walk_length=8, records_dir=os.path.join(tmp, "rec"),
+            embed=SGNSConfig(dim=16, window=4, epochs=1))
+        res = lp.run_logistic(cfg, device="cpu", verbose=False,
+                              metrics_file=os.path.join(tmp, "m.jsonl"))
+    assert 0.0 <= res["auc"] <= 1.0
+    assert "linkpred_tpu_torch.native" in sys.modules
+    assert "matplotlib" not in sys.modules  # no plot was asked for
+    assert_port_stands_alone()
+    print("JAX-FREE OK")
+""")
+
+_TWOWL_SCALE_SCRIPT = textwrap.dedent("""
+    import sys
+    import numpy as np
+    from linkpred_tpu_torch.pipelines import twowl_scale as ts
+
+    res = ts.run_twowl_scale(
+        ts.ScaleTwoWLConfig(nodes=600, edges=2400, epochs=4, max_degree=12,
+                            ei2_cap_per_node=32, n2v_walks_per_node=2,
+                            n2v_epochs=1),
+        device="cpu", verbose=True)
+    assert np.isfinite(res["loss_last_quarter"]), res
+    assert "linkpred_tpu_torch.utils.progress" in sys.modules
+    assert_port_stands_alone()
+    print("JAX-FREE OK")
+""")
+
+
 # no module of the JAX package, of the earlier benchmarks, of jax or of optax
 # may be loaded by a run of the port
 _PRELUDE = textwrap.dedent("""
@@ -67,6 +108,7 @@ def _run_without_jax(script):
     script = _PRELUDE + script
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"  # several worker processes run at once
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -81,10 +123,22 @@ def test_gcn_slice_runs_without_jax():
     _run_without_jax(_GCN_SCRIPT)
 
 
+def test_logistic_runs_without_jax():
+    _run_without_jax(_LOGISTIC_SCRIPT)
+
+
+def test_twowl_scale_runs_without_jax():
+    _run_without_jax(_TWOWL_SCALE_SCRIPT)
+
+
 def test_no_card_raises(monkeypatch, tmp_path):
     """Without CUDA, `cuda_device()` and the CLI raise before any work: no
     silent run on the CPU, no file written."""
     from linkpred_tpu_torch import cli
+    from linkpred_tpu_torch.pipelines.gcn_scale import (ScaleGCNConfig,
+                                                        train_collab)
+    from linkpred_tpu_torch.pipelines.twowl_scale import (ScaleTwoWLConfig,
+                                                          run_twowl_scale)
     from linkpred_tpu_torch.utils.device import cuda_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -93,16 +147,32 @@ def test_no_card_raises(monkeypatch, tmp_path):
         cuda_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--quiet", "twowl", "--epochs", "1", "--trials", "1"])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["--quiet", "scale", "--family", "gcn", "--steps", "1"])
+    for argv in (["scale", "--family", "gcn", "--steps", "1"],
+                 ["scale", "--family", "twowl", "--steps", "1"],
+                 ["logistic"],
+                 ["node2vec", "--input", os.path.join(
+                     REPO, "raw_data", "fb-pages-food", "fb-pages-food.edges"),
+                  "--output", "x.emb"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--quiet", *argv])
+    for fn in (lambda: run_twowl_scale(ScaleTwoWLConfig(nodes=300, edges=900)),
+               lambda: train_collab(ScaleGCNConfig(nodes=300, edges=900))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
     assert list(tmp_path.iterdir()) == []
 
 
-@pytest.mark.parametrize("family", ["seal", "twowl"])
-def test_scale_families_of_later_slices_raise(family, tmp_path, monkeypatch):
+@pytest.mark.parametrize("family,error,match", [
+    ("seal", NotImplementedError, "slice"),
+    ("twowl", RuntimeError, "no CUDA device")], ids=["seal", "twowl"])
+def test_scale_families_of_later_slices_raise(family, error, match, tmp_path,
+                                              monkeypatch):
+    """`--family seal` waits for its slice; `--family twowl` is ported and
+    so, here without a card, refuses to start."""
     from linkpred_tpu_torch import cli
 
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(error, match=match):
         cli.main(["scale", "--family", family])
     assert list(tmp_path.iterdir()) == []

@@ -16,6 +16,9 @@ from linkpred_tpu_torch.utils import metrics as tm
 from linkpred_tpu_torch.utils import records as tr
 from linkpred_tpu_torch.utils import timer as tt
 
+# the suite runs several worker processes at once: one compute thread each
+torch.set_num_threads(1)
+
 
 def _case(seed, n, ties=False):
     rng = np.random.default_rng(seed)

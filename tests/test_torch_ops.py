@@ -21,6 +21,9 @@ from linkpred_tpu_torch.ops import hopper_kernels as hk
 from linkpred_tpu_torch.ops import sddmm as tsd
 from linkpred_tpu_torch.ops import segment as tseg
 
+# the suite runs several worker processes at once: one compute thread each
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

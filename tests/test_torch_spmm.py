@@ -27,6 +27,9 @@ from linkpred_tpu_torch.ops import hopper_kernels as hk
 from linkpred_tpu_torch.ops import sddmm as tsd
 from linkpred_tpu_torch.ops import spmm as tspmm
 
+# the suite runs several worker processes at once: one compute thread each
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 BF16_RTOL, BF16_ATOL = 8e-3, 1e-2
 

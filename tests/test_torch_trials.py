@@ -38,6 +38,9 @@ from linkpred_tpu_torch.ops import segment as tseg
 from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
 from linkpred_tpu_torch.utils.metrics import roc_auc_trials
 
+# the suite runs several worker processes at once: one compute thread each
+torch.set_num_threads(1)
+
 T = 3
 TOY = dict(channels_1wl=8, channels_2wl=8, depth1=2, depth2=2)
 NO_DROP = dict(dp_emb=0.0, dp_1wl0=0.0, dp_1wl1=0.0, dp_2wl=0.0)
@@ -303,6 +306,39 @@ def test_forward_trials_matches_jax_and_single(toy_data, agg):
                                        rtol=1e-5, atol=1e-5)
 
 
+def test_forward_trials_unpaired_matches_jax_and_paired(toy_data):
+    """The unpaired branch of `forward_trials` (`from_split(...,
+    paired=False)`) against the JAX unpaired branch (no `e1_cops`), against
+    the port's paired branch and against the unpaired single-trial
+    `forward` of each trial, under a mask that removes two pairs."""
+    d = toy_data
+    cj, ct = _cfgs(d, "plan")
+    pj = jm.init_params_trials(jax.random.PRNGKey(0), cj, T)
+    pt = _to_torch(pj)
+    mask, sel = _eval_inputs(d.val)
+    mask = mask.copy()
+    mask[[4, 5, 8, 9]] = False
+    deg = np.asarray(d.node_deg)
+    aj = jm.SplitArrays.from_split(d.val)._replace(e1_cops=(), e2_cops=())
+    ref = np.asarray(jm.forward_trials(
+        pj, cj, jnp.asarray(deg), aj, jnp.asarray(mask), jnp.asarray(sel),
+        None, None))
+    unpaired = tm.SplitArrays.from_split(d.val, "cpu", paired=False)
+    head = (torch.from_numpy(deg).long(),)
+    tail = (torch.from_numpy(mask), torch.from_numpy(sel).long())
+    with torch.no_grad():
+        got = tm.forward_trials(pt, ct, *head, unpaired, *tail)
+        paired = tm.forward_trials(
+            pt, ct, *head, tm.SplitArrays.from_split(d.val, "cpu"), *tail)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), paired.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        single = tm.forward(tm.extract_trial(pt, 1), ct, *head, unpaired,
+                            *tail)
+        np.testing.assert_allclose(got[:, 1].numpy(), single.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
 def test_train_step_trials_grads_match_jax(toy_data, monkeypatch):
     """The gradients that `train_step_trials` hands to the per-trial Adam
     against `jax.grad` of the loss of JAX `train_step_trials` (the sum of
@@ -505,10 +541,12 @@ def test_run_twowl_with_refine(tmp_path):
         "state_file": str(tmp_path / "state.jsonl"),
         "roc_dir": str(tmp_path),
         "metrics_file": str(tmp_path / "logs" / "metrics.jsonl"),
+        "checkpoint_path": str(tmp_path / "ckpt" / "model"),
     }
     run = tp.TwoWLRunConfig(epochs=2, records_dir=str(tmp_path / "rec"))
     res = tp.run_twowl(run, n_trials=1, device="cpu", verbose=False,
                        refine_trials=3, **out)
+    assert (tmp_path / "ckpt" / "model.npz").exists()
     assert 0.0 <= res["test_auc"] <= 1.0
     best = json.loads((tmp_path / "logs.json").read_text())
     assert best == res["best_params"] and set(best) == set(tp.SEARCH_SPACE)

@@ -29,6 +29,9 @@ from linkpred_tpu_torch import cli
 from linkpred_tpu_torch.models import twowl as tm
 from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
 
+# the suite runs several worker processes at once: one compute thread each
+torch.set_num_threads(1)
+
 NO_DROP = dict(dp_emb=0.0, dp_1wl0=0.0, dp_1wl1=0.0, dp_2wl=0.0)
 
 
@@ -445,6 +448,273 @@ class TestTraining:
         assert int(since) == STOP + 1 + (E - stop_at)
 
 
+class TestBf16AndUnpaired:
+    """`compute_dtype='bf16'` and the unpaired 2-WL branch of `forward`."""
+
+    def _setup(self, d, **kw):
+        arch = dict(channels_1wl=8, channels_2wl=8, depth1=1, depth2=2)
+        cj, ct = _cfgs(d, ell=False, **arch, **NO_DROP, **kw)
+        pj = jm.init_params(jax.random.PRNGKey(0), cj)
+        msg_mask = np.ones(d.train.num_msg, bool)
+        msg_mask[[2, 3, 10, 11]] = False  # two removed pairs
+        sel = np.arange(8)
+        return cj, ct, pj, msg_mask, sel
+
+    @pytest.mark.parametrize("agg", ["ell", "plan"])
+    def test_bf16_forward_close_to_jax_and_f32(self, toy_data, agg):
+        """The bar of the JAX package's own bf16 test: the largest
+        difference under 0.05 of the largest f32 logit, against the JAX
+        bf16 forward (whose bucket-sum adds in bf16, the port's in f32) and
+        against the port's f32 forward."""
+        d = toy_data
+        cj, ct, pj, msg_mask, sel = self._setup(d)
+        ct = dataclasses.replace(ct, agg_1wl=agg)
+        deg = d.node_deg
+        l16_j = np.asarray(jm.forward(
+            pj, dataclasses.replace(cj, compute_dtype="bf16"),
+            jnp.asarray(deg), jm.SplitArrays.from_split(d.train),
+            jnp.asarray(msg_mask), jnp.asarray(sel), None))
+        at = tm.SplitArrays.from_split(d.train, "cpu")
+        args = (torch.from_numpy(deg).long(), at, torch.from_numpy(msg_mask),
+                torch.from_numpy(sel))
+        with torch.no_grad():
+            l32 = tm.forward(_to_torch(pj), ct, *args).numpy()
+            l16 = tm.forward(
+                _to_torch(pj), dataclasses.replace(ct, compute_dtype="bf16"),
+                *args)
+        assert l16.dtype == torch.float32  # the head runs in f32
+        l16 = l16.numpy()
+        scale = np.abs(l32).max() + 1e-9
+        assert np.abs(l16 - l16_j).max() / scale < 0.05
+        assert np.abs(l16 - l32).max() / scale < 0.05
+        assert np.abs(l16 - l32).max() > 0  # it did run in another dtype
+
+    def test_bf16_gradients_flow_and_stay_f32(self, toy_data):
+        d = toy_data
+        _, ct, pj, msg_mask, sel = self._setup(d)
+        ct = dataclasses.replace(ct, agg_1wl="ell", compute_dtype="bf16")
+        pt = _to_torch(pj)
+        logits = tm.forward(
+            pt, ct, torch.from_numpy(d.node_deg).long(),
+            tm.SplitArrays.from_split(d.train, "cpu"),
+            torch.from_numpy(msg_mask), torch.from_numpy(sel))
+        logits.square().sum().backward()
+        for leaf in tm.tree_leaves(pt):
+            assert leaf.grad is not None and leaf.grad.dtype == torch.float32
+            assert torch.isfinite(leaf.grad).all()
+        assert float(pt["conv2"][0]["w"].grad.abs().max()) > 0
+
+    @pytest.mark.parametrize("which", ["toy_data", "fb_data"])
+    def test_unpaired_matches_jax_unpaired_and_paired(self, which, request):
+        d = request.getfixturevalue(which)
+        cj, ct, pj, msg_mask, sel = self._setup(d)
+        s = d.val
+        msg_mask = msg_mask[:s.num_msg] if len(msg_mask) > s.num_msg else \
+            np.concatenate([msg_mask, np.ones(s.num_msg - len(msg_mask),
+                                              bool)])
+        sel = s.num_msg + np.arange(len(s.pos1) - s.num_msg)
+        aj = jm.SplitArrays.from_split(s)._replace(e1_cops=(), e2_cops=())
+        ref = np.asarray(jm.forward(
+            pj, cj, jnp.asarray(d.node_deg), aj, jnp.asarray(msg_mask),
+            jnp.asarray(sel), None))
+        unpaired = tm.SplitArrays.from_split(s, "cpu", paired=False)
+        paired = tm.SplitArrays.from_split(s, "cpu")
+        assert unpaired.e1_cops == () and paired.e1_src is None
+        assert paired.e1_plan == () and len(unpaired.e2_plan) == 3
+        common = (torch.from_numpy(d.node_deg).long(),)
+        tail = (torch.from_numpy(msg_mask), torch.from_numpy(sel))
+        with torch.no_grad():
+            got = tm.forward(_to_torch(pj), ct, *common, unpaired, *tail)
+            got_paired = tm.forward(_to_torch(pj), ct, *common, paired, *tail)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), got_paired.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+    def test_unpaired_gradients_match_paired(self, toy_data):
+        d = toy_data
+        _, ct, pj, msg_mask, sel = self._setup(d)
+        grads = []
+        for paired in (False, True):
+            pt = _to_torch(pj)
+            tm.forward(pt, ct, torch.from_numpy(d.node_deg).long(),
+                       tm.SplitArrays.from_split(d.train, "cpu",
+                                                 paired=paired),
+                       torch.from_numpy(msg_mask), torch.from_numpy(sel)
+                       ).square().sum().backward()
+            grads.append([leaf.grad for leaf in tm.tree_leaves(pt)])
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+class TestTrainLoopOptions:
+    """`eval_every`, `init_best`, the learning-rate schedule and the
+    unfused routine."""
+
+    def _inputs(self, d, E, **kw):
+        cj, ct = _cfgs(d, ell=False, channels_1wl=8, channels_2wl=8,
+                       depth1=1, depth2=1, learning_rate=1e-3, **NO_DROP, **kw)
+        pos, neg = tp.batch_schedule(d, tp.TwoWLRunConfig(epochs=E))
+        return cj, ct, pos, neg
+
+    def test_eval_every_and_init_best_match_train_scan(self, toy_data):
+        """Two calls of 8 epochs with `eval_every=4`, the second seeded by
+        the first's best: -1 markers, the best AUC and the since-best count
+        where the JAX `train_scan` puts them, and one call of 16 gives the
+        same."""
+        d = toy_data
+        E, half = 16, 8
+        cj, ct, pos, neg = self._inputs(d, E)
+        pj = _jax_init(cj)
+        opt = optax.adam(cj.learning_rate)
+        trn_j, val_j = (jm.SplitArrays.from_split(s) for s in (d.train, d.val))
+        state, params_j = opt.init(pj), pj
+        best_j, hist_j = None, []
+        for start in (0, half):
+            params_j, state, bp, ba, since_j, (loss_j, auc_j) = jm.train_scan(
+                params_j, state, jax.random.PRNGKey(1),
+                jnp.asarray(pos[start:start + half]),
+                jnp.asarray(neg[start:start + half]), trn_j, val_j,
+                jnp.asarray(d.val.y), jnp.asarray(d.node_deg), cj, opt,
+                d.num_nodes, half, eval_every=4, init_best=best_j,
+                early_stop=800)
+            best_j = (bp, ba, since_j)
+            hist_j.append((np.asarray(loss_j), np.asarray(auc_j)))
+
+        trn, val = (tm.SplitArrays.from_split(s, "cpu")
+                    for s in (d.train, d.val))
+        args = (trn, val, torch.from_numpy(d.val.y),
+                torch.from_numpy(d.node_deg).long(), ct, d.num_nodes)
+        pos_t, neg_t = torch.from_numpy(pos).long(), torch.from_numpy(neg).long()
+
+        def run(cuts):
+            pt = _to_torch(pj)
+            opt_t = tm.adam(pt, ct.learning_rate)
+            best, hist = None, []
+            for a, b in cuts:
+                bp, ba, since, h = tm.train_loop(
+                    pt, opt_t, None, pos_t[a:b], neg_t[a:b], *args,
+                    early_stop=800, eval_every=4, init_best=best)
+                best = (bp, ba, since)
+                hist.append(h)
+            return best, hist
+
+        best, hist = run([(0, half), (half, E)])
+        for (loss_t, auc_t), (loss_j, auc_j) in zip(hist, hist_j):
+            np.testing.assert_allclose(loss_t.numpy(), loss_j, rtol=1e-4)
+            marks = auc_j == -1.0
+            assert marks.sum() == 6 and not marks[3] and not marks[7]
+            np.testing.assert_array_equal(auc_t.numpy() == -1.0, marks)
+            np.testing.assert_allclose(auc_t.numpy()[~marks], auc_j[~marks],
+                                       rtol=0, atol=2.5e-4)
+        assert int(best[2]) == int(best_j[2])
+        np.testing.assert_allclose(float(best[1]), float(best_j[1]), rtol=0,
+                                   atol=2.5e-4)
+        # the GraphNorm-cancelled biases take a noise step of up to lr an
+        # epoch in each package
+        _assert_trees_close(best[0], best_j[0], rtol=1e-4, atol=1e-6,
+                            cancelled_atol=2 * 1e-3 * E)
+        whole, hist_w = run([(0, E)])
+        assert int(whole[2]) == int(best[2])
+        assert float(whole[1]) == float(best[1])
+        torch.testing.assert_close(
+            hist_w[0][1], torch.cat([h[1] for h in hist]), rtol=0, atol=0)
+
+    def test_init_best_carries_since_into_early_stop(self, toy_data):
+        d = toy_data
+        _, ct, pos, neg = self._inputs(d, 6)
+        pt = tm.init_params(ct, torch.Generator().manual_seed(0), "cpu")
+        best0 = tm.tree_map(lambda p: p.detach().clone(), pt)
+        _, best_a, since, (losses, aucs) = tm.train_loop(
+            pt, tm.adam(pt, ct.learning_rate), None,
+            torch.from_numpy(pos).long(), torch.from_numpy(neg).long(),
+            tm.SplitArrays.from_split(d.train, "cpu"),
+            tm.SplitArrays.from_split(d.val, "cpu"), torch.from_numpy(d.val.y),
+            torch.from_numpy(d.node_deg).long(), ct, d.num_nodes,
+            early_stop=3, init_best=(best0, 2.0, 2))
+        # no AUC beats 2.0: epochs 0 and 1 run (since 2 -> 4), the rest freeze
+        assert int(since) == 2 + 6 and float(best_a) == 2.0
+        assert (losses[:2] > 0).all() and (losses[2:] == 0).all()
+        assert (aucs[:2] >= 0).all() and (aucs[2:] == -1.0).all()
+
+    def test_warmup_cosine_schedule_equals_optax(self):
+        for init, peak, warm, decay, end in (
+                (0.0005, 0.01, 10, 96, 0.0002), (0.0005, 0.01, 10, 11, 0.0002),
+                (0.0, 0.05, 3, 40, 0.0), (0.001, 0.02, 0, 25, 0.001)):
+            ref = optax.schedules.warmup_cosine_decay_schedule(
+                init_value=init, peak_value=peak, warmup_steps=warm,
+                decay_steps=decay, end_value=end)
+            got = tm.warmup_cosine_schedule(init, peak, warm, decay, end)
+            steps = np.arange(decay + 5)
+            want = np.array([float(ref(int(k))) for k in steps])
+            np.testing.assert_allclose(got(steps), want, rtol=0, atol=1e-8)
+            assert float(got(7)) == got(steps)[7]
+
+    def test_lr_schedule_is_adam_under_the_optax_schedule(self, toy_data):
+        """Epoch k trains at schedule(k): four epochs under a warm-up cosine
+        schedule against optax's Adam driven by the same schedule."""
+        d = toy_data
+        E = 4
+        cj, ct, pos, neg = self._inputs(d, E)
+        sched = optax.schedules.warmup_cosine_decay_schedule(
+            init_value=5e-5, peak_value=1e-3, warmup_steps=2, decay_steps=E,
+            end_value=2e-5)
+        opt = optax.adam(sched)
+        pj = _jax_init(cj)
+        *_, (loss_j, _) = jm.train_scan(
+            pj, opt.init(pj), jax.random.PRNGKey(1), jnp.asarray(pos),
+            jnp.asarray(neg), jm.SplitArrays.from_split(d.train),
+            jm.SplitArrays.from_split(d.val), jnp.asarray(d.val.y),
+            jnp.asarray(d.node_deg), cj, opt, d.num_nodes, E)
+        pt = _to_torch(pj)
+        lrs = tm.warmup_cosine_schedule(5e-5, 1e-3, 2, E, 2e-5)(np.arange(E))
+        optimizer = tm.adam(pt, 123.0)  # overwritten before every step
+        *_, (loss_t, _) = tm.train_loop(
+            pt, optimizer, None, torch.from_numpy(pos).long(),
+            torch.from_numpy(neg).long(),
+            tm.SplitArrays.from_split(d.train, "cpu"),
+            tm.SplitArrays.from_split(d.val, "cpu"), torch.from_numpy(d.val.y),
+            torch.from_numpy(d.node_deg).long(), ct, d.num_nodes,
+            lr_schedule=lrs)
+        assert optimizer.param_groups[0]["lr"] == lrs[-1]
+        np.testing.assert_allclose(loss_t.numpy(), np.asarray(loss_j),
+                                   rtol=1e-4)
+
+    def test_train_routine_equals_fused(self, fb_data):
+        """The per-epoch host loop and the fused loop over 5 epochs at lr
+        1e-3, reference dropouts, on the fused loop's batch schedule: the
+        same losses, and the same val AUCs and test AUC of the best epoch
+        up to tie handling."""
+        d = fb_data
+        ct = tm.TwoWLConfig(max_degree=d.max_degree, learning_rate=1e-3,
+                            agg_1wl="ell")
+        run = tp.TwoWLRunConfig(epochs=5)
+        fused = tp.train_routine_fused(d, ct, run, "cpu", seed=3)
+        loop = tp.train_routine(d, ct, run, "cpu", seed=3,
+                                schedule=tp.batch_schedule(d, run))
+        np.testing.assert_allclose(loop["loss_history"],
+                                   fused["loss_history"], rtol=1e-6)
+        # the host loop ranks sigmoid scores in numpy (ties share a rank),
+        # the fused loop ranks logits on the device (ties take the lower
+        # rank), and near-equal logits can round to one f32 score: the AUCs
+        # may differ by the order of two (positive, negative) pairs
+        def two_pairs(y):
+            return 2.0 / (float(y.sum()) * float((1 - y).sum()))
+
+        np.testing.assert_allclose(loop["history"], fused["history"],
+                                   rtol=0, atol=two_pairs(d.val.y))
+        assert loop["best_val"] == pytest.approx(fused["best_val"],
+                                                 abs=two_pairs(d.val.y))
+        assert loop["test_auc"] == pytest.approx(fused["test_auc"],
+                                                 abs=two_pairs(d.test.y))
+        assert loop["fpr"][0] == 0.0 and loop["tpr"][-1] == 1.0
+        # without a schedule it draws as the reference's loop: positives and
+        # negatives of an epoch in turn from one stream
+        own = tp.train_routine(d, ct, tp.TwoWLRunConfig(epochs=2), "cpu",
+                               seed=3)
+        assert own["history"].shape == (2,)
+        assert own["loss_history"][0] != fused["loss_history"][0]
+
+
 class TestPipeline:
     def test_search_space_and_trials_match(self):
         assert tp.SEARCH_SPACE == jp.SEARCH_SPACE
@@ -458,9 +728,20 @@ class TestPipeline:
             "state_file": str(tmp_path / "state.jsonl"),
             "roc_dir": str(tmp_path),
             "metrics_file": str(tmp_path / "logs" / "metrics.jsonl"),
+            "roc_png": str(tmp_path / "img" / "twowl_roc.png"),
+            "checkpoint_path": str(tmp_path / "ckpt" / "model"),
         }
         run = tp.TwoWLRunConfig(epochs=2, records_dir=str(tmp_path / "rec"))
         res = tp.run_twowl(run, n_trials=2, device="cpu", verbose=False, **out)
+        assert os.path.getsize(out["roc_png"]) > 0
+        # the winner's parameters: the embedding table and its GraphNorm,
+        # 5 leaves a conv layer, the head
+        hp = res["best_params"]
+        saved = np.load(out["checkpoint_path"] + ".npz")
+        assert len(saved.files) == 4 + 5 * (hp["depth1"] + 2 * hp["depth2"]) + 2
+        assert all(np.isfinite(saved[k]).all() for k in saved.files)
+        meta = json.loads((tmp_path / "ckpt" / "model.tree.json").read_text())
+        assert meta["num_leaves"] == len(saved.files)
         rec = tmp_path / "rec" / "fb-pages-food_auc_record_twowl.txt"
         lines = rec.read_text().splitlines(keepends=True)
         assert len(lines) == 2

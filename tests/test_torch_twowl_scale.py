@@ -1,0 +1,187 @@
+"""TwoWL at scale in the port (`pipelines/twowl_scale.py`) against the JAX
+package on the CPU: the host build array-equal for both generators, the
+schedules equal, the pipeline at toy size, and the new CLI subcommands."""
+
+import dataclasses
+import json
+
+import numpy as np
+import optax
+import pytest
+import torch
+
+from linkpred_tpu.pipelines import twowl_scale as jts
+from linkpred_tpu_torch import cli
+from linkpred_tpu_torch.pipelines import twowl_scale as ts
+
+# the suite runs several worker processes at once: one compute thread each
+torch.set_num_threads(1)
+
+TOY = dict(nodes=1200, edges=5000, epochs=40, max_degree=12,
+           ei2_cap_per_node=48, val_ratio=0.05, test_ratio=0.1)
+
+
+def test_config_fields_and_defaults_match():
+    """The JAX config's fields and defaults, but `chunk_epochs` (its
+    chunking works around a limit on one device program's run time)."""
+    ct = dataclasses.asdict(ts.ScaleTwoWLConfig())
+    cj = dataclasses.asdict(jts.ScaleTwoWLConfig())
+    assert cj.pop("chunk_epochs") == 16
+    assert ct == cj
+
+
+@pytest.mark.parametrize("graph", ["community", "powerlaw"])
+def test_build_scale_data_equal(graph):
+    kw = dict(nodes=1200, edges=5000, graph=graph, seed=3)
+    dt = ts.build_scale_data(ts.ScaleTwoWLConfig(**kw))
+    dj = jts.build_scale_data(jts.ScaleTwoWLConfig(**kw))
+    assert (dt.num_nodes, dt.max_degree) == (dj.num_nodes, dj.max_degree)
+    np.testing.assert_array_equal(dt.node_deg, dj.node_deg)
+    assert dt.max_degree <= 32
+    for st, sj in ((dt.train, dj.train), (dt.val, dj.val),
+                   (dt.test, dj.test)):
+        for f in dataclasses.fields(st):
+            a, b = getattr(st, f.name), getattr(sj, f.name)
+            if isinstance(a, np.ndarray):
+                assert a.dtype == b.dtype and a.shape == b.shape, f.name
+                np.testing.assert_array_equal(a, b, err_msg=f.name)
+            else:
+                assert a == b, f.name
+        # the per-node budget bounds the ei2 slots (rounded up to the pad)
+        assert len(st.e1_src) <= 128 * dt.num_nodes + 4096
+
+
+def test_batch_and_lr_schedules_match_jax_draws():
+    cfg = ts.ScaleTwoWLConfig(nodes=1200, edges=5000, epochs=7,
+                              batch_pairs=300)
+    data = ts.build_scale_data(cfg)
+    pos, neg = ts.batch_schedule(cfg, data)
+    n_pos, n_neg = data.train.num_msg // 2, len(data.train.pred) // 2
+    P = max(1, min(300, n_pos // 8, n_neg))
+    rng = np.random.default_rng(cfg.seed)
+    np.testing.assert_array_equal(
+        pos, np.stack([rng.permutation(n_pos)[:P] for _ in range(7)]))
+    np.testing.assert_array_equal(
+        neg, np.stack([rng.permutation(n_neg)[:P] for _ in range(7)]))
+    assert pos.dtype == np.int32 and pos.shape == (7, P)
+    # batch_pairs 0: one val-sized minibatch, still capped
+    pos0, _ = ts.batch_schedule(dataclasses.replace(cfg, batch_pairs=0), data)
+    assert pos0.shape[1] == max(1, min(len(data.val.y), n_pos // 8, n_neg))
+
+    full = ts.ScaleTwoWLConfig()
+    ref = optax.schedules.warmup_cosine_decay_schedule(
+        init_value=full.learning_rate * 0.05, peak_value=full.learning_rate,
+        warmup_steps=full.warmup_epochs,
+        decay_steps=max(full.epochs, full.warmup_epochs + 1),
+        end_value=full.learning_rate * 0.02)
+    lrs = ts.lr_schedule(full)
+    assert lrs.shape == (96,)
+    np.testing.assert_allclose(lrs, [float(ref(k)) for k in range(96)],
+                               rtol=0, atol=1e-8)
+    assert ts.lr_schedule(dataclasses.replace(full, warmup_epochs=0)) is None
+
+
+def test_model_config_is_the_jax_one():
+    cfg = ts.ScaleTwoWLConfig(nodes=1200, edges=5000)
+    data = ts.build_scale_data(cfg)
+    mc = ts.model_config(cfg, data, "ell")
+    assert (mc.max_degree, mc.degree_feature) == (1199, False)
+    assert mc.compute_dtype == "bf16" and mc.agg_1wl == "ell"
+    assert (mc.dp_emb, mc.dp_1wl0, mc.dp_1wl1, mc.dp_2wl) == (0, 0, 0, 0)
+    assert mc.act0 and not mc.act1
+    md = ts.model_config(dataclasses.replace(cfg, node_feature="degree"),
+                         data, "plan")
+    assert (md.max_degree, md.degree_feature) == (data.max_degree, True)
+
+
+@pytest.mark.parametrize("agg", ["ell", "plan"])
+def test_scale_pipeline_toy(agg):
+    """The toy config of the JAX package's own test of this pipeline: loss
+    falls, AUC beats chance, the ei2 budget holds, the JAX package's result
+    keys come back."""
+    out = ts.run_twowl_scale(ts.ScaleTwoWLConfig(**TOY), device="cpu",
+                             agg_1wl=agg, verbose=False)
+    assert out["loss_decreased"], out
+    assert out["test_auc"] > 0.55, out
+    assert out["ei2_columns"] <= 48 * 1200 + 4096
+    assert out["epochs"] == 40 and out["nodes"] == 1200
+    assert out["compile_seconds"] == 0.0 and out["node_feature"] == "n2v"
+    assert 0.5 < out["best_val_auc"] <= 1.0 and out["epochs_per_s"] > 0
+    jax_keys = {"nodes", "msg_edges", "ei2_columns", "ei2_cap_per_node",
+                "epochs", "loss_first_quarter", "loss_last_quarter",
+                "loss_decreased", "best_val_auc", "test_auc", "train_seconds",
+                "epochs_per_s", "compile_seconds", "build_seconds",
+                "n2v_seconds", "node_feature"}
+    assert set(out) == jax_keys | {"operand_seconds"}
+
+
+@pytest.mark.parametrize("feature", ["degree", "free"])
+def test_scale_pipeline_other_features_and_early_stop(feature):
+    """The degree-indexed and the unseeded free table, f32, a constant
+    rate, and an early stop that cuts the run at a call's boundary."""
+    cfg = ts.ScaleTwoWLConfig(
+        nodes=600, edges=2400, epochs=40, max_degree=12, ei2_cap_per_node=32,
+        val_ratio=0.05, test_ratio=0.1, node_feature=feature,
+        compute_dtype="f32", warmup_epochs=0, early_stop=2, eval_every=1)
+    out = ts.run_twowl_scale(cfg, device="cpu", verbose=False)
+    assert out["n2v_seconds"] == 0.0 and out["node_feature"] == feature
+    assert np.isfinite(out["loss_last_quarter"])
+    assert out["epochs"] % 16 == 0 and out["epochs"] <= 40
+
+
+def test_cli_parses_and_runs_new_subcommands(tmp_path, monkeypatch, capsys):
+    """`logistic`, `node2vec` and `scale --family twowl` parse as the JAX
+    CLI's and run at toy size (on the CPU here: the card is replaced)."""
+    p = cli.build_parser()
+    a = p.parse_args(["--seed", "4", "logistic"])
+    assert (a.cmd, a.seed, a.roc_png) == ("logistic", 4, None)
+    a = p.parse_args(["node2vec", "--input", "g.edgelist", "--output",
+                      "g.emb"])
+    assert (a.dimensions, a.walk_length, a.num_walks, a.window_size, a.iter,
+            a.p, a.q, a.directed, a.weighted, a.walks_output) == (
+        128, 80, 10, 10, 1, 1.0, 1.0, False, False, None)
+    a = p.parse_args(["scale", "--family", "twowl", "--nodes", "5000",
+                      "--edges", "25000", "--steps", "16"])
+    assert (a.family, a.nodes, a.edges, a.steps) == ("twowl", 5000, 25000, 16)
+
+    from linkpred_tpu_torch.utils import device
+
+    monkeypatch.setattr(device, "cuda_device", lambda: torch.device("cpu"))
+    monkeypatch.chdir(tmp_path)
+    edges = tmp_path / "ring.edgelist"
+    n = 30
+    ring = np.stack([np.arange(n), (np.arange(n) + 1) % n], axis=1)
+    np.savetxt(edges, np.concatenate([ring, ring[::3] * [1, 0] + [0, 7]]),
+               fmt="%d")
+    cli.main(["node2vec", "--input", str(edges), "--output", "ring.emb",
+              "--dimensions", "8", "--walk-length", "10", "--num-walks", "4",
+              "--walks-output", "ring.walks"])
+    rows = (tmp_path / "ring.emb").read_text().splitlines()
+    assert rows[0] == f"{n} 8" and len(rows) == n + 1
+    assert rows[1].split()[0] == "1" and len(rows[1].split()) == 9
+    walks = np.loadtxt(tmp_path / "ring.walks", dtype=int)
+    assert walks.shape == (4 * n, 10)
+    capsys.readouterr()
+
+    cli.main(["--quiet", "scale", "--family", "twowl", "--nodes", "600",
+              "--edges", "2400", "--steps", "4"])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["nodes"] == 600 and res["epochs"] == 4
+    assert np.isfinite(res["loss_last_quarter"])
+
+    # `logistic` at its full config is a card's work; here its pipeline runs
+    # at a small one through the same command function
+    from linkpred_tpu_torch.models.word2vec import SGNSConfig
+    from linkpred_tpu_torch.pipelines import logistic_pipeline as lp
+
+    small = dataclasses.replace(
+        lp.LogisticConfig(), num_walks=4, walk_length=8,
+        embed=SGNSConfig(dim=16, window=4, epochs=1))
+    monkeypatch.setattr(lp, "LogisticConfig",
+                        lambda seed: dataclasses.replace(small, seed=seed))
+    cli.main(["--quiet", "--seed", "35", "logistic"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("AUC:") and "Time:" in line
+    assert (tmp_path / "records_auc" /
+            "fb-pages-food_auc_record_logistic.txt").exists()
+    assert (tmp_path / "logs" / "metrics.jsonl").exists()
