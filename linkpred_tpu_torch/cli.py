@@ -6,6 +6,8 @@
     python -m linkpred_tpu_torch.cli twowl --refine 32 --refine-mode adaptive
     python -m linkpred_tpu_torch.cli scale --family gcn   # collab-scale GCN
     python -m linkpred_tpu_torch.cli scale --family twowl # TwoWL at 50k nodes
+    python -m linkpred_tpu_torch.cli scale --family seal  # SEAL at 235k nodes
+    python -m linkpred_tpu_torch.cli seal --epochs 50 --hop auto
     python -m linkpred_tpu_torch.cli logistic             # node2vec + logistic
     python -m linkpred_tpu_torch.cli node2vec --input graph.edgelist \
         --output graph.emb
@@ -70,6 +72,21 @@ def _cmd_node2vec(args):
           f"{args.output}")
 
 
+def _cmd_seal(args):
+    from linkpred_tpu_torch.pipelines.seal_pipeline import SEALConfig, run_seal
+    from linkpred_tpu_torch.utils.device import cuda_device
+
+    cfg = SEALConfig(seed=args.seed)
+    if args.epochs is not None:
+        cfg = dataclasses.replace(cfg, epochs=args.epochs)
+    if args.hop is not None:
+        cfg = dataclasses.replace(
+            cfg, hop=args.hop if args.hop == "auto" else int(args.hop))
+    res = run_seal(cfg, device=cuda_device(), verbose=not args.quiet,
+                   roc_png=args.roc_png)
+    print(f"AUC:{res['auc']:.4f}   Time:{res['train_seconds']:.4f}")
+
+
 def _cmd_twowl(args):
     from linkpred_tpu_torch.pipelines.twowl_pipeline import (
         TwoWLRunConfig,
@@ -89,15 +106,12 @@ def _cmd_twowl(args):
 
 def _cmd_scale(args):
     """End-to-end training at scale on one card: `--family gcn`
-    (`pipelines.gcn_scale`, BASELINE config 5) or `--family twowl`
-    (`pipelines.twowl_scale`, the capacity-bounded LocalWLNet); prints the
-    result as one JSON line."""
+    (`pipelines.gcn_scale`, BASELINE config 5), `--family twowl`
+    (`pipelines.twowl_scale`, the capacity-bounded LocalWLNet) or `--family
+    seal` (`pipelines.seal_scale`, CSR extraction and the batched DGCNN);
+    prints the result as one JSON line."""
     import json
 
-    if args.family == "seal":
-        raise NotImplementedError(
-            "scale --family seal waits for its slice of the port (slice 4; "
-            "ROADMAP.md)")
     from linkpred_tpu_torch.utils.device import cuda_device
 
     device = cuda_device()
@@ -120,6 +134,14 @@ def _cmd_scale(args):
 
         res = run_twowl_scale(ScaleTwoWLConfig(**overrides(epochs=args.steps)),
                               device=device, verbose=not args.quiet)
+    elif args.family == "seal":
+        from linkpred_tpu_torch.pipelines.seal_scale import (
+            ScaleSEALConfig,
+            run_seal_scale,
+        )
+
+        res = run_seal_scale(ScaleSEALConfig(**overrides(hop=args.hop)),
+                             device=device, verbose=not args.quiet)
     else:
         from linkpred_tpu_torch.pipelines.gcn_scale import (
             ScaleGCNConfig,
@@ -141,6 +163,13 @@ def build_parser() -> argparse.ArgumentParser:
                 "the reference's path is assets/img/<family>_roc.png)")
     pl = sub.add_parser("logistic", help="node2vec + logistic regression")
     pl.add_argument("--roc-png", default=None, metavar="PATH", help=roc_help)
+    ps = sub.add_parser("seal", help="SEAL enclosing-subgraph DGCNN")
+    ps.add_argument("--epochs", type=int, default=None)
+    ps.add_argument(
+        "--hop", default=None, metavar="H",
+        help="enclosing-subgraph hop count: 'auto' (CN-vs-AA heuristic, "
+             "the reference default) or an integer")
+    ps.add_argument("--roc-png", default=None, metavar="PATH", help=roc_help)
     pt = sub.add_parser("twowl",
                         help="TwoWL 2-WL GNN with hyperparameter sweep")
     pt.add_argument("--epochs", type=int, default=None)
@@ -158,8 +187,8 @@ def build_parser() -> argparse.ArgumentParser:
              "and Adam moments); adaptive: 4 rounds of N/4 trials, later "
              "rounds sampled around the best configs seen")
     psc = sub.add_parser(
-        "scale", help="end-to-end training at scale on one card (GCN at "
-                      "collab scale, TwoWL at 50k nodes)")
+        "scale", help="end-to-end training at scale on one card (GCN and "
+                      "SEAL at collab scale, TwoWL at 50k nodes)")
     psc.add_argument("--family", choices=["gcn", "seal", "twowl"],
                      default="gcn")
     psc.add_argument("--nodes", type=int, default=None)
@@ -170,6 +199,8 @@ def build_parser() -> argparse.ArgumentParser:
                           "relabeled) instead of the synthetic generator")
     psc.add_argument("--steps", type=int, default=None)
     psc.add_argument("--dtype", choices=["f32", "bf16"], default="bf16")
+    psc.add_argument("--hop", type=int, default=2,
+                     help="SEAL family: enclosing-subgraph hop count")
 
     pn = sub.add_parser("node2vec", help="standalone node2vec embedding CLI")
     pn.add_argument("--input", required=True)
@@ -191,7 +222,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     {"twowl": _cmd_twowl, "scale": _cmd_scale, "logistic": _cmd_logistic,
-     "node2vec": _cmd_node2vec}[args.cmd](args)
+     "seal": _cmd_seal, "node2vec": _cmd_node2vec}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -4,12 +4,14 @@ of `linkpred_tpu/native.py` that the port's data modules call.
 The port builds its own library from the same source, with `g++`, into the
 ignored `build/native/` directory at the root of the checkout (never to
 `native/libgraphlib.so`, which belongs to the JAX package), named by a hash
-of the source and the flags. The port's host modules use three entry points:
+of the source and the flags. The port's host modules use five entry points:
 `sample_negatives` (`data.split.negative_sampling` falls back to its numpy
-sampler when no compiler is at hand), and for node2vec `build_alias_rows`
+sampler when no compiler is at hand), for node2vec `build_alias_rows`
 (numpy fallback: `ops.walk.alias_setup_rows`) and `edge_bias_probs` (raises
 without the library; `ops.walk.AliasTables.build` then takes its numpy
-path).
+path), and for SEAL `extract_subgraphs_csr` and `drnl_tags_batch` (both
+raise without the library; `data.subgraph` then takes its numpy path or the
+BFS in torch).
 """
 
 from __future__ import annotations
@@ -65,6 +67,16 @@ def load_library():
         except (OSError, subprocess.CalledProcessError):
             return None
         lib.sample_negatives.restype = ctypes.c_int64
+        lib.build_alias_rows.restype = None
+        lib.edge_bias_probs.restype = None
+        lib.extract_subgraphs_csr.restype = None
+        lib.drnl_tags_batch.restype = None
+        i32p, u8p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8)
+        lib.extract_subgraphs_csr.argtypes = [
+            i32p, i32p, ctypes.c_int32, i32p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_uint64, i32p, u8p, u8p, i32p]
+        lib.drnl_tags_batch.argtypes = [u8p, u8p, i32p, ctypes.c_int64,
+                                        ctypes.c_int32, i32p]
         _lib = lib
         return _lib
 
@@ -155,3 +167,50 @@ def edge_bias_probs(src, dst, nbr, mask, indptr, indices, p: float, q: float,
         _ptr(out, ctypes.c_double),
     )
     return out
+
+
+def extract_subgraphs_csr(indptr, indices, num_nodes: int, pairs,
+                          hop: int, max_neighbors: int, seed: int = 0):
+    """Threaded C++ k-hop enclosing-subgraph extraction over CSR. Returns
+    (nodes [P, K] int32, mask [P, K] bool, adj [P, K, K] uint8, sizes [P]
+    int32), K = `max_neighbors`; the random truncation draws from `seed`.
+    Raises without the library."""
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError("native library unavailable; use the numpy path")
+    pairs = _i32(pairs)
+    P, K = pairs.shape[0], max_neighbors
+    indptr_c, indices_c = _i32(indptr), _i32(indices)
+    nodes = np.zeros((P, K), dtype=np.int32)
+    mask = np.zeros((P, K), dtype=np.uint8)
+    adj = np.zeros((P, K, K), dtype=np.uint8)
+    sizes = np.zeros(P, dtype=np.int32)
+    lib.extract_subgraphs_csr(
+        _ptr(indptr_c, ctypes.c_int32), _ptr(indices_c, ctypes.c_int32),
+        ctypes.c_int32(num_nodes), _ptr(pairs, ctypes.c_int32),
+        ctypes.c_int64(P), ctypes.c_int32(hop), ctypes.c_int32(K),
+        ctypes.c_uint64(seed),
+        _ptr(nodes, ctypes.c_int32), _ptr(mask, ctypes.c_uint8),
+        _ptr(adj, ctypes.c_uint8), _ptr(sizes, ctypes.c_int32),
+    )
+    return nodes, mask.astype(bool), adj, sizes
+
+
+def drnl_tags_batch(adj, mask, sizes):
+    """Threaded C++ DRNL labeling of a padded subgraph stack (adj [P, K, K]
+    uint8, mask [P, K] bool, sizes [P]) -> tags [P, K] int32, the tags of
+    `data.subgraph.drnl_tags`. Raises without the library."""
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError("native library unavailable; use drnl_tags")
+    adj = np.ascontiguousarray(adj, dtype=np.uint8)
+    mask_u8 = np.ascontiguousarray(mask, dtype=np.uint8)
+    sizes = _i32(sizes)
+    P, K = mask_u8.shape
+    tags = np.zeros((P, K), dtype=np.int32)
+    lib.drnl_tags_batch(
+        _ptr(adj, ctypes.c_uint8), _ptr(mask_u8, ctypes.c_uint8),
+        _ptr(sizes, ctypes.c_int32), ctypes.c_int64(P), ctypes.c_int32(K),
+        _ptr(tags, ctypes.c_int32),
+    )
+    return tags

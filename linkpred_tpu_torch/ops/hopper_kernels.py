@@ -11,6 +11,9 @@ kernel; `LAUNCHES_BY_WIDTH` counts the same launches by feature width.
     K3 spmm_bucketed  csrc/spmm_bucketed.cu  bucketed ELL SpMM, f32 or bf16
     K2 sddmm          csrc/sddmm.cu          per-edge dot products -> f32
 
+`spmm_ell_auto` and `sddmm_auto` are the reference's dispatch entries: thin
+calls of K1 and K2 that build the kernels' operands.
+
 K1 and K3 choose between a warp-per-row kernel and a wide-row kernel by the
 shape and alignment of `x` inside their launch functions.
 """
@@ -158,6 +161,19 @@ def spmm_ell(nbr: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def spmm_ell_auto(nbr: torch.Tensor, nbr_mask: torch.Tensor, x: torch.Tensor,
+                  nbr_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 on an ELL layout given as `nbr` [M, D], `nbr_mask` [M, D] bool and
+    optional `nbr_weight` [M, D]: the slot weights are `mask * weight` in
+    f32, `x` is taken in f32 -> [M, F] f32. The reference's dispatch entry
+    of its Pallas kernel (`pallas_kernels.spmm_ell_auto`)."""
+    w = nbr_mask.float()
+    if nbr_weight is not None:
+        w = w * nbr_weight.float()
+    return spmm_ell(nbr.to(torch.int32).contiguous(), w.contiguous(),
+                    x.float().contiguous())
+
+
 # ---------------------------------------------------------------------------
 # K3: bucketed ELL SpMM
 # ---------------------------------------------------------------------------
@@ -295,3 +311,14 @@ def sddmm(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
                 dst.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
                 e, nx, ny, f, _stream(x.device))
     return out
+
+
+def sddmm_auto(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
+               y: torch.Tensor | None = None) -> torch.Tensor:
+    """K2 with `y = x` when no `y` is given and int32 contiguous indices:
+    [E] f32. The reference's dispatch entry of its Pallas kernel
+    (`pallas_kernels.sddmm_auto`)."""
+    y = x if y is None else y
+    return sddmm(src.to(torch.int32).contiguous(),
+                 dst.to(torch.int32).contiguous(), x.contiguous(),
+                 y.contiguous())

@@ -4,7 +4,8 @@ Host side (numpy): `SegmentPlan` groups the slots of a static segment
 structure into degree-bucketed position matrices, and `composed_operands`
 substitutes gathered rows into them, exactly as the JAX package builds them.
 
-Device side (torch): the planned bucket-sum as a `torch.autograd.Function`
+Device side (torch): `segment_sum`, `segment_mean`, `segment_max`,
+`degree_from_edges`; the planned bucket-sum as a `torch.autograd.Function`
 whose backward is one gather; `segment_sum_ell`, whose forward is kernel K1
 (`hopper_kernels.spmm_ell`); and the composed gather-sum of the 2-WL
 aggregation, whose forward and transposed backward run kernel K3
@@ -39,14 +40,50 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.index_add(0, ids, data)[:num_segments]
 
 
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int, mask: torch.Tensor | None = None,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """Masked segment mean; an empty segment gives 0."""
+    ones = torch.ones(data.shape[0], dtype=data.dtype, device=data.device)
+    cnt = segment_sum(ones, segment_ids, num_segments, mask)
+    tot = segment_sum(data, segment_ids, num_segments, mask)
+    return tot / cnt.clamp(min=eps).reshape((-1,) + (1,) * (data.dim() - 1))
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Segment max, `jax.ops.segment_max`'s contract: an empty segment
+    holds the dtype's lowest value (-inf for floats); ids outside
+    `[0, num_segments)` are dropped."""
+    lowest = (float("-inf") if data.dtype.is_floating_point
+              else torch.iinfo(data.dtype).min)
+    ids = segment_ids.long()
+    keep = (ids >= 0) & (ids < num_segments)
+    ids = torch.where(keep, ids, num_segments)
+    out = torch.full((num_segments + 1,) + tuple(data.shape[1:]), lowest,
+                     dtype=data.dtype, device=data.device)
+    index = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce(0, index, data, "amax")[:num_segments]
+
+
+def degree_from_edges(dst: torch.Tensor, num_nodes: int,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """In-degree by destination, f32 [num_nodes]; masked edges do not
+    count."""
+    ones = torch.ones(dst.shape, dtype=torch.float32, device=dst.device)
+    return segment_sum(ones, dst, num_nodes, mask)
+
+
 def gcn_norm_coefficients(src: torch.Tensor, dst: torch.Tensor,
                           num_nodes: int, mask: torch.Tensor | None = None,
-                          plan: tuple | None = None
+                          plan: tuple | None = None,
+                          add_self_loops: bool = True
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric GCN normalisation `1/sqrt(d_u d_v)` per edge (PyG
-    `gcn_norm` with self loops): degrees count incoming edge weight by
-    `dst`, +1 for the self loop. Returns (edge_coeff [E], self_loop_coeff
-    [N]); `plan` is an optional `SegmentPlan.operands` tuple for `dst`."""
+    `gcn_norm`): degrees count incoming edge weight by `dst`, +1 for the
+    self loop when `add_self_loops`. Returns (edge_coeff [E],
+    self_loop_coeff [N], zeros without self loops); `plan` is an optional
+    `SegmentPlan.operands` tuple for `dst`."""
     ones = torch.ones(dst.shape, dtype=torch.float32, device=dst.device)
     if mask is not None:
         ones = ones * mask.float()
@@ -54,11 +91,14 @@ def gcn_norm_coefficients(src: torch.Tensor, dst: torch.Tensor,
         deg = segment_sum_planned(ones, *plan)
     else:
         deg = segment_sum(ones, dst, num_nodes)
-    dinv = torch.rsqrt((deg + 1.0).clamp(min=1e-12))
+    if add_self_loops:
+        deg = deg + 1.0
+    dinv = torch.rsqrt(deg.clamp(min=1e-12))
     coeff = dinv[src] * dinv[dst]
     if mask is not None:
         coeff = coeff * mask.to(coeff.dtype)
-    return coeff, dinv * dinv
+    return coeff, (dinv * dinv if add_self_loops
+                   else torch.zeros_like(dinv))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,15 @@
-"""Degree-bucketed ELL aggregation — the counterpart of the single-card part
-of `linkpred_tpu/ops/spmm.py` (`BucketedEll`, `spmm_bucketed`,
-`spmm_bucketed_sym`).
+"""Sparse x dense aggregation (SpMM) — the counterpart of the single-card
+part of `linkpred_tpu/ops/spmm.py`. All compute `out[i] = sum_{j in N(i)}
+w_ij * x[j]`:
+
+- COO + segment sum (`spmm_coo`), with per-edge weights and a validity mask,
+  and the symmetric-normalised `gcn_aggregate` on it;
+- flat ELL gather-sum (`spmm_ell`, `spmm_ell_blocked`) in plain PyTorch;
+- degree-bucketed ELL (`BucketedEll`, `spmm_bucketed`, `spmm_bucketed_sym`)
+  on kernel K3;
+- `spmm_auto`, the reference's regime dispatch: 'bucketed' (K3), 'ell'
+  (plain) or, when forced, 'pallas', which is K1 here
+  (`hopper_kernels.spmm_ell_auto`).
 
 `BucketedEll.build` is the reference's host builder, re-implemented (that
 module imports jax) and array-equal to it. `operands(device)` flattens the
@@ -18,6 +27,57 @@ import numpy as np
 import torch
 
 from linkpred_tpu_torch.ops import hopper_kernels as hk
+from linkpred_tpu_torch.ops.segment import gcn_norm_coefficients, segment_sum
+
+# graphs of more rows than this take the bucketed regime in `spmm_auto` (the
+# reference's switch point)
+BUCKETED_MIN_NODES = 16384
+
+
+def spmm_coo(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
+             num_nodes: int, edge_weight: torch.Tensor | None = None,
+             mask: torch.Tensor | None = None) -> torch.Tensor:
+    """out[dst] += w * x[src] over the (masked) edges: [num_nodes, F]."""
+    msgs = x[src.long()]
+    if edge_weight is not None:
+        msgs = msgs * edge_weight[:, None]
+    return segment_sum(msgs, dst, num_nodes, mask)
+
+
+def spmm_ell(nbr: torch.Tensor, nbr_mask: torch.Tensor, x: torch.Tensor,
+             nbr_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Flat ELL aggregation: out[i] = sum_d mask[i, d] * w[i, d] *
+    x[nbr[i, d]] for `nbr` [N, D], `nbr_mask` [N, D] bool, x [NX, F]."""
+    w = nbr_mask.to(x.dtype)
+    if nbr_weight is not None:
+        w = w * nbr_weight
+    return torch.einsum("nd,ndf->nf", w, x[nbr.long()])
+
+
+def spmm_ell_blocked(nbr: torch.Tensor, nbr_mask: torch.Tensor,
+                     x: torch.Tensor, nbr_weight: torch.Tensor | None = None,
+                     block_rows: int = 4096) -> torch.Tensor:
+    """`spmm_ell` a block of `block_rows` rows at a time, which bounds the
+    [block, D, F] gathered rows of large graphs."""
+    return torch.cat([
+        spmm_ell(nbr[s: s + block_rows], nbr_mask[s: s + block_rows], x,
+                 None if nbr_weight is None else nbr_weight[s: s + block_rows])
+        for s in range(0, nbr.shape[0], block_rows)]
+        or [x.new_zeros((0, x.shape[1]))])
+
+
+def gcn_aggregate(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
+                  num_nodes: int, mask: torch.Tensor | None = None,
+                  add_self_loops: bool = True) -> torch.Tensor:
+    """Symmetric-normalised GCN propagation over an edge index, `D^-1/2 (A +
+    I) D^-1/2 x` with degrees from the (masked) edges: the aggregation of
+    PyG's `GCNConv`."""
+    coeff, self_coeff = gcn_norm_coefficients(
+        src, dst, num_nodes, mask=mask, add_self_loops=add_self_loops)
+    out = spmm_coo(src, dst, x, num_nodes, edge_weight=coeff, mask=mask)
+    if add_self_loops:
+        out = out + self_coeff[:, None] * x
+    return out
 
 
 def width_ladder(max_width: int, min_width: int = 2) -> list[int]:
@@ -160,3 +220,31 @@ def spmm_bucketed_sym_reference(x: torch.Tensor, num_nodes: int,
     _check_rows(operands, num_nodes)
     return _SymmetricAggregation.apply(x, hk.spmm_bucketed_reference,
                                        operands)
+
+
+def spmm_auto(nbr, nbr_mask, x: torch.Tensor, nbr_weight=None,
+              force: str | None = None) -> torch.Tensor:
+    """Whole-graph SpMM with the reference's host-side regime choice:
+
+    - 'bucketed': builds a `BucketedEll` on the host (`nbr`, `nbr_mask` and
+      `nbr_weight` are then numpy or host tensors) and runs K3 on `x`'s
+      device; the default above `BUCKETED_MIN_NODES` rows. Loops should
+      build the layout once and call `spmm_bucketed`.
+    - 'ell': the plain flat ELL gather-sum; the default below.
+    - 'pallas' (forced only): K1 (`hopper_kernels.spmm_ell_auto`), f32."""
+    n = nbr.shape[0]
+    regime = force or ("bucketed" if n > BUCKETED_MIN_NODES else "ell")
+
+    def dev(a):
+        return None if a is None else torch.as_tensor(a, device=x.device)
+
+    if regime == "pallas":
+        return hk.spmm_ell_auto(dev(nbr), dev(nbr_mask), x, dev(nbr_weight))
+    if regime == "bucketed":
+        lay = BucketedEll.build(
+            np.asarray(nbr), np.asarray(nbr_mask),
+            None if nbr_weight is None else np.asarray(nbr_weight))
+        return spmm_bucketed(x, lay.num_nodes, *lay.operands(x.device))
+    if regime == "ell":
+        return spmm_ell(dev(nbr), dev(nbr_mask), x, dev(nbr_weight))
+    raise ValueError(f"spmm_auto: unknown regime {regime!r}")

@@ -2,10 +2,10 @@
 `linkpred_tpu/utils/checkpoint.py`, in its format: one `.npz` of the leaves
 (`leaf_0`, `leaf_1`, ...) plus a `.tree.json` that describes the structure.
 
-A tree is nested dicts, lists and tuples of tensors (or arrays). The leaves
-are numbered as `jax.tree_util.tree_flatten` numbers them, dict keys in
-sorted order and sequences in their own, so a checkpoint written by either
-package restores in the other. `latest_checkpoint` follows the
+A tree is nested dicts, lists, tuples and named tuples of tensors (or
+arrays). The leaves are numbered as `jax.tree_util.tree_flatten` numbers
+them, dict keys in sorted order and sequences in their own, so a checkpoint
+written by either package restores in the other. `latest_checkpoint` follows the
 `<name>-<step>` suffix convention.
 """
 
@@ -20,6 +20,10 @@ import numpy as np
 import torch
 
 
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _flatten(tree: Any) -> tuple[list, str]:
     """(leaves in jax's order, the structure written as jax prints a
     `PyTreeDef`)."""
@@ -31,7 +35,10 @@ def _flatten(tree: Any) -> tuple[list, str]:
     if isinstance(tree, (list, tuple)):
         parts = [_flatten(t) for t in tree]
         spec = ", ".join(s for _, s in parts)
-        if isinstance(tree, tuple):
+        if _is_namedtuple(tree):
+            spec = (f"CustomNode(namedtuple[{type(tree).__name__}], "
+                    f"[{spec}])")
+        elif isinstance(tree, tuple):
             spec = f"({spec}{',' if len(parts) == 1 else ''})"
         else:
             spec = f"[{spec}]"
@@ -45,6 +52,8 @@ def _unflatten(like: Any, leaves) -> Any:
     if isinstance(like, dict):
         filled = {k: _unflatten(like[k], leaves) for k in sorted(like)}
         return {k: filled[k] for k in like}
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(t, leaves) for t in like))
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(t, leaves) for t in like)
     return next(leaves)

@@ -1,9 +1,9 @@
 """ROC metrics — the counterpart of `linkpred_tpu/utils/metrics.py`.
 
-`roc_auc_score` and `roc_curve` are host numpy, as in the reference;
-`roc_auc` is the on-device AUC of the fused training loop (the reference's
-`roc_auc_jax`), and `roc_auc_trials` its per-trial form for the trial-major
-sweep.
+`roc_auc_score`, `roc_curve` and `accuracy` are host numpy, as in the
+reference; `roc_auc` is the on-device AUC of the fused training loop (the
+reference's `roc_auc_jax`), and `roc_auc_trials` its per-trial form for the
+trial-major sweep.
 """
 
 from __future__ import annotations
@@ -61,6 +61,13 @@ def roc_curve(y_true: np.ndarray, y_score: np.ndarray
         np.concatenate([[0.0], tpr]),
         np.concatenate([[np.inf], thresholds]),
     )
+
+
+def accuracy(y_true: np.ndarray, y_pred: np.ndarray) -> float:
+    """Share of predictions equal to the labels (host numpy)."""
+    y_true = np.asarray(y_true).reshape(-1)
+    y_pred = np.asarray(y_pred).reshape(-1)
+    return float((y_true == y_pred).mean())
 
 
 def roc_auc(y_true: torch.Tensor, y_score: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Card-only checks of the port: kernels K1, K3 and K2 and the paths through
 them on a CUDA device, against their plain PyTorch versions on the same card:
 the TwoWL slice (K1 on the 1-WL aggregation, K3 on the paired 2-WL
-composed gather-sum, single-trial and trial-major) and the GCN slice (K3,
-K2).
+composed gather-sum, single-trial and trial-major), the GCN slice (K3,
+K2), and SEAL (no kernel: DRNL on the card against the C++ plane, a DGCNN
+step on the card against the CPU, and the dispatch entries of K1 and K2).
 
 Every test here carries the `cuda` marker and skips without a card. The file
 imports no JAX, so it also runs on a machine with a card and no JAX:
@@ -19,7 +20,10 @@ at most one bf16 ulp of the output: rtol 2^-7 (8e-3), atol 1e-6. K2 returns
 f32 sums of exact products of bf16 values: rtol 1e-5, atol 1e-4 (sums of
 128 products reach ~40). A GCN training step on the kernels against the
 plain versions in f32: loss and gradients rtol 1e-4, atol 1e-6 (four
-aggregations and a score, each summed in another order).
+aggregations and a score, each summed in another order). A DGCNN step on
+the card against the CPU from the same parameters: loss and updated
+parameters rtol 1e-4, atol 1e-6 (cuBLAS and cuDNN sum in other orders;
+TF32 is off).
 """
 
 import dataclasses
@@ -691,3 +695,112 @@ def test_bf16_train_step_ell_matches_plan(cuda, scale_data):
     for a, b in zip(m.tree_leaves(params["ell"]),
                     m.tree_leaves(params["plan"])):
         assert float((a - b).detach().abs().max()) <= 2e-3 + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# SEAL
+# ---------------------------------------------------------------------------
+
+
+def _subgraph_stack(seed, P=64, K=40, p_edge=0.08):
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(2, K + 1, P).astype(np.int32)
+    mask = np.arange(K)[None, :] < sizes[:, None]
+    adj = rng.random((P, K, K)) < p_edge
+    adj = adj | adj.transpose(0, 2, 1)
+    adj &= mask[:, :, None] & mask[:, None, :]
+    adj = adj.astype(np.uint8)
+    adj[:, 0, 1] = adj[:, 1, 0] = 0
+    return adj, mask, sizes
+
+
+@pytest.mark.parametrize("seed,K", [(0, 40), (1, 100)])
+def test_drnl_tags_on_the_card_match_native(cuda, seed, K):
+    from linkpred_tpu_torch import native
+    from linkpred_tpu_torch.data import subgraph as sg
+
+    assert native.available()
+    adj, mask, sizes = _subgraph_stack(seed, K=K)
+    got = sg.drnl_tags(torch.as_tensor(adj, device=cuda),
+                       torch.as_tensor(mask, device=cuda))
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  native.drnl_tags_batch(adj, mask, sizes))
+
+
+def test_dgcnn_step_on_the_card_matches_cpu(cuda):
+    """One `train_steps` step (dropout off) from the same parameters on the
+    card and on the CPU: the same loss and gradients; the updated
+    parameters within 2 lr (Adam's first step moves each by lr times the
+    sign of its gradient, and a gradient near 0 may take either sign)."""
+    from linkpred_tpu_torch.data import subgraph as sg
+    from linkpred_tpu_torch.models import seal
+
+    adj, mask, sizes = _subgraph_stack(2, P=48, K=30, p_edge=0.15)
+    tags, tsize = sg.compact_tags(
+        sg.drnl_tags(torch.as_tensor(adj), torch.as_tensor(mask)).numpy(),
+        mask)
+    rng = np.random.default_rng(3)
+    batch = sg.SubgraphBatch(
+        nodes=(rng.integers(0, 90, mask.shape) * mask).astype(np.int32),
+        node_mask=mask, adj=adj, sizes=sizes, tags=tags, tags_size=tsize)
+    emb = rng.standard_normal((90, 16)).astype(np.float32)
+    labels = rng.integers(0, 2, 48).astype(np.int32)
+    idx = seal.batch_schedule(rng, np.arange(48), 16, 1)[:1]
+    k = seal.threshold_from_sizes(sizes, 60.0)
+    start = seal.init_params(torch.Generator().manual_seed(0),
+                             tsize + 16, k, "cpu")
+    lr, out = 1e-3, {}
+    for dev in ("cpu", cuda):
+        p = seal.params_from_jax(
+            seal.DGCNNParams(tuple(w.detach().numpy() for w in start.gw),
+                             *(t.detach().numpy() for t in start[1:])), dev)
+        stack = seal.CompactStack.from_batch(batch, emb, labels, dev)
+        rows = torch.as_tensor(idx, device=dev)
+        d_inv, a_tilde, x, m_, y = stack.minibatch(rows[0])
+        grads = torch.autograd.grad(
+            seal.loss_fn(p, d_inv, a_tilde, x, m_, y, k, None, 0.0),
+            seal.leaves(p), allow_unused=True)
+        loss = seal.train_steps(p, seal.adam(p, lr), rows, stack, k, 0.0)
+        out[str(dev)] = (loss.cpu(),
+                         [None if g is None else g.cpu() for g in grads],
+                         [t.detach().cpu() for t in seal.leaves(p)])
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-6)
+    for a, b in zip(gg, gc):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    for a, b in zip(pg, pc):
+        assert float((a - b).abs().max()) <= 2 * lr + 1e-6
+
+
+def test_dispatch_entries_launch_k1_and_k2(cuda):
+    """`spmm_ell_auto`, `sddmm_auto` and `spmm_auto(force='pallas')` launch
+    their kernels on CUDA tensors and agree with the plain versions."""
+    rng = np.random.default_rng(4)
+    n, d, f = 300, 12, 40
+    nbr = rng.integers(0, n, (n, d))
+    # an ELL layout: each row's live slots first, as `Graph` builds them
+    mask = np.arange(d)[None, :] < rng.integers(0, d + 1, n)[:, None]
+    w = rng.random((n, d)).astype(np.float32)
+    x = torch.as_tensor(rng.standard_normal((n, f)).astype(np.float32),
+                        device=cuda)
+    before = dict(hk.LAUNCHES)
+    got = hk.spmm_ell_auto(torch.as_tensor(nbr, device=cuda),
+                           torch.as_tensor(mask, device=cuda), x,
+                           torch.as_tensor(w, device=cuda))
+    ref = spmm.spmm_ell(torch.as_tensor(nbr, device=cuda),
+                        torch.as_tensor(mask, device=cuda), x,
+                        torch.as_tensor(w, device=cuda))
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    pallas = spmm.spmm_auto(nbr, mask, x, force="pallas")
+    bucketed = spmm.spmm_auto(nbr, mask, x, force="bucketed")
+    torch.testing.assert_close(pallas, bucketed, rtol=1e-5, atol=1e-5)
+    src = torch.as_tensor(rng.integers(0, n, 500), device=cuda)
+    dst = torch.as_tensor(rng.integers(0, n, 500), device=cuda)
+    torch.testing.assert_close(hk.sddmm_auto(src, dst, x),
+                               hk.sddmm_reference(src, dst, x, x),
+                               rtol=1e-5, atol=1e-4)
+    launched = {k: hk.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {"spmm_ell": 2, "spmm_bucketed": 1, "sddmm": 1}

@@ -1,14 +1,17 @@
 """The port's own host data modules (`linkpred_tpu_torch.data`, numpy only)
 against the JAX package's originals on the same inputs, made from a numpy
 seed: every array must be equal, since the copies run the same code on the
-same random streams. Then the byte counts and the CSR constructors that
-`chip_smoke.py` uses for a kernel's bound and its library yardstick, on
-layouts small enough to count by hand.
+same random streams (both packages' C++ libraries are built and loaded at
+import, once across the suite's worker processes). Then the byte counts and
+the CSR constructors that `chip_smoke.py` uses for a kernel's bound and its
+library yardstick, on layouts small enough to count by hand.
 """
 
 import dataclasses
+import fcntl
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -38,6 +41,32 @@ sys.path.insert(0, os.path.join(REPO, "benchmarks"))
 
 import chip_smoke as cs  # noqa: E402
 import scaling as jscaling  # noqa: E402  (benchmarks/scaling.py)
+
+
+def build_native_libraries(attempts: int = 60) -> None:
+    """Load both packages' graph libraries in this process, building each
+    at most once across processes: the builds run under a lock file in the
+    ignored `build/` directory. The JAX package's loader builds
+    `native/libgraphlib.so` with `make` and remembers a failed load (as when
+    another process was still writing the file); such a failure is cleared
+    and the load retried until it succeeds."""
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with open(os.path.join(REPO, "build", "native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            tnative.load_library()
+            for _ in range(attempts):
+                if jnative.load_library() is not None:
+                    break
+                jnative._tried = False
+                time.sleep(1.0)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+# every worker process of the suite imports this module before it runs a
+# test: the C++ plane is then loaded in each, whichever built it
+build_native_libraries()
 
 
 def _assert_fields_equal(a, b):
@@ -419,6 +448,47 @@ def test_native_edge_bias_probs_equal(weighted):
         assert set(np.unique(got[g.nbr_mask[g.dst]])) <= {4.0, 1.0, 0.25}
 
 
+def test_native_seal_entry_points_equal():
+    """`extract_subgraphs_csr` and `drnl_tags_batch` of the port's library
+    against the JAX package's: the same source, the same arrays."""
+    e, n = _pairs(4, n=80, e=400)
+    e = e[e[:, 0] != e[:, 1]]
+    g = tgraph.Graph.from_undirected_edges(e[:, 0], e[:, 1], num_nodes=n)
+    pairs = np.random.default_rng(1).integers(0, 80, (30, 2))
+    got = tnative.extract_subgraphs_csr(g.indptr, g.indices, 80, pairs, 2,
+                                        16, seed=3)
+    ref = jnative.extract_subgraphs_csr(g.indptr, g.indices, 80, pairs, 2,
+                                        16, seed=3)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    nodes, mask, adj, sizes = got
+    np.testing.assert_array_equal(tnative.drnl_tags_batch(adj, mask, sizes),
+                                  jnative.drnl_tags_batch(adj, mask, sizes))
+
+
+@pytest.mark.parametrize("hop", [1, 2])
+def test_subgraph_host_functions_equal(hop):
+    """The dense extraction, tag compaction and host input assembly of
+    `data.subgraph` against the JAX package's on a shared generator."""
+    from linkpred_tpu.data import subgraph as jsg
+    from linkpred_tpu_torch.data import subgraph as tsg
+
+    pairs, n = _pairs(hop, n=40, e=120)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    adj = np.zeros((n, n), dtype=bool)
+    adj[pairs[:, 0], pairs[:, 1]] = adj[pairs[:, 1], pairs[:, 0]] = True
+    targets = pairs[:12]
+    got = tsg.build_subgraph_batch(targets, adj, hop, 10,
+                                   np.random.default_rng(0), device="cpu")
+    ref = jsg.build_subgraph_batch(targets, adj, hop, 10,
+                                   np.random.default_rng(0))
+    _assert_fields_equal(got, ref)
+    emb = np.random.default_rng(2).standard_normal((n, 3)).astype(np.float32)
+    for a, b in zip(tsg.gnn_inputs(got, emb), jsg.gnn_inputs(ref, emb)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_native_alias_routines_without_library(monkeypatch):
     """Without the library `build_alias_rows` takes the numpy version and
     `edge_bias_probs` raises (its caller then takes its numpy path)."""
@@ -498,3 +568,10 @@ def test_load_edgelist_reads_comma_separated(tmp_path):
     np.savetxt(spaced, pairs, fmt="%d")
     _assert_fields_equal(tio.load_edgelist(path),
                          jio.load_edgelist(str(spaced)))
+
+
+def test_native_libraries_loaded_in_every_process():
+    """The build at import leaves both libraries loaded: no test of the
+    C++ plane in this process skips or falls back for want of one."""
+    assert tnative.available() and jnative.available()
+    assert tnative.library_path().exists()

@@ -90,6 +90,50 @@ _TWOWL_SCALE_SCRIPT = textwrap.dedent("""
 """)
 
 
+# SEAL: the subgraph data (C++ plane and the numpy loop), the DGCNN, both
+# pipelines and the rest of the ops
+_SEAL_SCRIPT = textwrap.dedent("""
+    import os
+    import sys
+    import tempfile
+    import numpy as np
+    import torch
+    from linkpred_tpu_torch import native
+    from linkpred_tpu_torch.data import subgraph as sg
+    from linkpred_tpu_torch.ops import segment, spmm
+    from linkpred_tpu_torch.pipelines import seal_pipeline as sp
+    from linkpred_tpu_torch.pipelines import seal_scale as ss
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = sp.SEALConfig(epochs=1, hop=1, max_neighbors=20, dimension=8,
+                            records_dir=os.path.join(tmp, "rec"))
+        res = sp.run_seal(cfg, device="cpu", verbose=False, roc_png=None,
+                          metrics_file=os.path.join(tmp, "m.jsonl"),
+                          checkpoint_prefix=os.path.join(tmp, "ck", "model"))
+        restored = sp.restore_seal_params(
+            res["params"].gw[0].shape[0], res["threshold_k"],
+            os.path.join(tmp, "ck", "model-1000.npz"))
+    assert 0.0 <= res["auc"] <= 1.0
+    out = ss.run_seal_scale(ss.ScaleSEALConfig(
+        nodes=1500, edges=6000, target_pairs=64, epochs=1, max_neighbors=20),
+        device="cpu", verbose=False)
+    assert np.isfinite(out["loss_first_quarter"]), out
+    native.available = lambda: False  # the numpy loop and the torch BFS
+    b = sg.build_subgraph_batch_csr(np.array([[0, 1], [2, 3]]),
+                                    np.array([0, 1, 2, 3, 4]),
+                                    np.array([1, 0, 3, 2]), 4, 2, 5,
+                                    device="cpu")
+    assert b.tags.shape == (2, 5)
+    x = torch.ones(4, 3)
+    src, dst = torch.tensor([0, 1, 2]), torch.tensor([1, 2, 3])
+    assert spmm.gcn_aggregate(src, dst, x, 4).shape == (4, 3)
+    assert segment.segment_max(x, dst.repeat(2)[:4], 4).shape == (4, 3)
+    assert "linkpred_tpu_torch.models.seal" in sys.modules
+    assert_port_stands_alone()
+    print("JAX-FREE OK")
+""")
+
+
 # no module of the JAX package, of the earlier benchmarks, of jax or of optax
 # may be loaded by a run of the port
 _PRELUDE = textwrap.dedent("""
@@ -131,12 +175,19 @@ def test_twowl_scale_runs_without_jax():
     _run_without_jax(_TWOWL_SCALE_SCRIPT)
 
 
+def test_seal_runs_without_jax():
+    _run_without_jax(_SEAL_SCRIPT)
+
+
 def test_no_card_raises(monkeypatch, tmp_path):
     """Without CUDA, `cuda_device()` and the CLI raise before any work: no
     silent run on the CPU, no file written."""
     from linkpred_tpu_torch import cli
     from linkpred_tpu_torch.pipelines.gcn_scale import (ScaleGCNConfig,
                                                         train_collab)
+    from linkpred_tpu_torch.pipelines.seal_pipeline import SEALConfig, run_seal
+    from linkpred_tpu_torch.pipelines.seal_scale import (ScaleSEALConfig,
+                                                         run_seal_scale)
     from linkpred_tpu_torch.pipelines.twowl_scale import (ScaleTwoWLConfig,
                                                           run_twowl_scale)
     from linkpred_tpu_torch.utils.device import cuda_device
@@ -149,6 +200,8 @@ def test_no_card_raises(monkeypatch, tmp_path):
         cli.main(["--quiet", "twowl", "--epochs", "1", "--trials", "1"])
     for argv in (["scale", "--family", "gcn", "--steps", "1"],
                  ["scale", "--family", "twowl", "--steps", "1"],
+                 ["scale", "--family", "seal"],
+                 ["seal", "--epochs", "1"],
                  ["logistic"],
                  ["node2vec", "--input", os.path.join(
                      REPO, "raw_data", "fb-pages-food", "fb-pages-food.edges"),
@@ -156,19 +209,21 @@ def test_no_card_raises(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--quiet", *argv])
     for fn in (lambda: run_twowl_scale(ScaleTwoWLConfig(nodes=300, edges=900)),
-               lambda: train_collab(ScaleGCNConfig(nodes=300, edges=900))):
+               lambda: train_collab(ScaleGCNConfig(nodes=300, edges=900)),
+               lambda: run_seal(SEALConfig(epochs=1), roc_png=None),
+               lambda: run_seal_scale(ScaleSEALConfig(nodes=300, edges=900))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
     assert list(tmp_path.iterdir()) == []
 
 
 @pytest.mark.parametrize("family,error,match", [
-    ("seal", NotImplementedError, "slice"),
+    ("seal", RuntimeError, "no CUDA device"),
     ("twowl", RuntimeError, "no CUDA device")], ids=["seal", "twowl"])
 def test_scale_families_of_later_slices_raise(family, error, match, tmp_path,
                                               monkeypatch):
-    """`--family seal` waits for its slice; `--family twowl` is ported and
-    so, here without a card, refuses to start."""
+    """`--family seal` and `--family twowl`, the families of later slices,
+    are ported and so, here without a card, refuse to start."""
     from linkpred_tpu_torch import cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -347,3 +347,201 @@ class TestSddmm:
         ]:
             np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=RTOL,
                                        atol=ATOL)
+        for got, ref in [
+            (hk.sddmm_auto(ts, td, tx), jpk.sddmm_auto(js, jd, jx)),
+            (hk.sddmm_auto(ts, td, tx, ty), jpk.sddmm_auto(js, jd, jx, jy)),
+        ]:
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=RTOL,
+                                       atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the rest of ops/spmm.py and ops/segment.py (mirrors of tests/test_ops.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def small_graph():
+    """tests/test_ops.py's `small`: 40 nodes, random undirected edges."""
+    from linkpred_tpu_torch.data.graph import Graph
+
+    rng = np.random.default_rng(1234)
+    n, m = 40, 150
+    u = rng.integers(0, n, size=m)
+    v = rng.integers(0, n, size=m)
+    keep = u != v
+    g = Graph.from_undirected_edges(u[keep], v[keep], num_nodes=n)
+    x = rng.standard_normal((n, 16)).astype(np.float32)
+    return g, x
+
+
+class TestSpmmRest:
+    def test_spmm_coo_matches_jax_and_dense(self, small_graph):
+        from linkpred_tpu.ops import spmm as jspmm
+        from linkpred_tpu_torch.ops import spmm as tspmm
+
+        g, x = small_graph
+        got = tspmm.spmm_coo(torch.from_numpy(g.src), torch.from_numpy(g.dst),
+                             torch.from_numpy(x), g.num_nodes)
+        ref = jspmm.spmm_coo(jnp.asarray(g.src), jnp.asarray(g.dst),
+                             jnp.asarray(x), g.num_nodes)
+        np.testing.assert_allclose(_np(got), np.asarray(ref), RTOL, ATOL)
+        np.testing.assert_allclose(_np(got), g.dense_adjacency() @ x,
+                                   rtol=1e-5, atol=1e-5)
+
+    def test_spmm_coo_weighted_masked(self, small_graph):
+        from linkpred_tpu.ops import spmm as jspmm
+        from linkpred_tpu_torch.ops import spmm as tspmm
+
+        g, x = small_graph
+        rng = np.random.default_rng(3)
+        w = rng.random(g.num_edges).astype(np.float32)
+        mask = rng.random(g.num_edges) > 0.3
+        got = tspmm.spmm_coo(torch.from_numpy(g.src), torch.from_numpy(g.dst),
+                             torch.from_numpy(x), g.num_nodes,
+                             edge_weight=torch.from_numpy(w),
+                             mask=torch.from_numpy(mask))
+        ref = jspmm.spmm_coo(jnp.asarray(g.src), jnp.asarray(g.dst),
+                             jnp.asarray(x), g.num_nodes,
+                             edge_weight=jnp.asarray(w),
+                             mask=jnp.asarray(mask))
+        np.testing.assert_allclose(_np(got), np.asarray(ref), RTOL, ATOL)
+
+    @pytest.mark.parametrize("weighted", [False, True])
+    def test_spmm_ell_and_blocked_match_jax(self, small_graph, weighted):
+        from linkpred_tpu.ops import spmm as jspmm
+        from linkpred_tpu_torch.ops import spmm as tspmm
+
+        g, x = small_graph
+        w = (np.random.default_rng(4).random(g.nbr.shape).astype(np.float32)
+             if weighted else None)
+        tw = None if w is None else torch.from_numpy(w)
+        jw = None if w is None else jnp.asarray(w)
+        targs = (torch.from_numpy(g.nbr), torch.from_numpy(g.nbr_mask),
+                 torch.from_numpy(x))
+        jargs = (jnp.asarray(g.nbr), jnp.asarray(g.nbr_mask), jnp.asarray(x))
+        ref = np.asarray(jspmm.spmm_ell(*jargs, jw))
+        np.testing.assert_allclose(_np(tspmm.spmm_ell(*targs, tw)), ref,
+                                   RTOL, ATOL)
+        for block in (7, 40, 4096):
+            np.testing.assert_allclose(
+                _np(tspmm.spmm_ell_blocked(*targs, tw, block_rows=block)),
+                np.asarray(jspmm.spmm_ell_blocked(*jargs, jw,
+                                                  block_rows=block)),
+                RTOL, ATOL)
+        if not weighted:  # symmetric graph: ELL rows == COO by dst
+            coo = tspmm.spmm_coo(torch.from_numpy(g.src),
+                                 torch.from_numpy(g.dst), targs[2],
+                                 g.num_nodes)
+            np.testing.assert_allclose(_np(tspmm.spmm_ell(*targs)), _np(coo),
+                                       rtol=1e-5, atol=1e-5)
+
+    def test_degree(self, small_graph):
+        g, _ = small_graph
+        dst = torch.from_numpy(g.dst)
+        d = tseg.degree_from_edges(dst, g.num_nodes)
+        np.testing.assert_array_equal(_np(d), g.degree.astype(np.float32))
+        np.testing.assert_array_equal(
+            _np(d), np.asarray(jseg.degree_from_edges(jnp.asarray(g.dst),
+                                                      g.num_nodes)))
+        mask = np.arange(len(g.dst)) % 3 != 0
+        np.testing.assert_array_equal(
+            _np(tseg.degree_from_edges(dst, g.num_nodes,
+                                       torch.from_numpy(mask))),
+            np.asarray(jseg.degree_from_edges(jnp.asarray(g.dst), g.num_nodes,
+                                              jnp.asarray(mask))))
+
+    @pytest.mark.parametrize("self_loops", [True, False])
+    def test_gcn_aggregate_matches_jax(self, small_graph, self_loops):
+        from linkpred_tpu.ops import spmm as jspmm
+        from linkpred_tpu_torch.ops import spmm as tspmm
+
+        g, x = small_graph
+        mask = np.arange(len(g.src)) % 4 != 1
+        got = tspmm.gcn_aggregate(
+            torch.from_numpy(g.src), torch.from_numpy(g.dst),
+            torch.from_numpy(x), g.num_nodes, torch.from_numpy(mask),
+            add_self_loops=self_loops)
+        ref = jspmm.gcn_aggregate(jnp.asarray(g.src), jnp.asarray(g.dst),
+                                  jnp.asarray(x), g.num_nodes,
+                                  jnp.asarray(mask),
+                                  add_self_loops=self_loops)
+        np.testing.assert_allclose(_np(got), np.asarray(ref), RTOL, ATOL)
+        if self_loops:  # unmasked: the dense symmetric normalisation
+            full = tspmm.gcn_aggregate(
+                torch.from_numpy(g.src), torch.from_numpy(g.dst),
+                torch.from_numpy(x), g.num_nodes)
+            a = g.dense_adjacency() + np.eye(g.num_nodes, dtype=np.float32)
+            dinv = 1.0 / np.sqrt(a.sum(axis=1))
+            np.testing.assert_allclose(
+                _np(full), (dinv[:, None] * a * dinv[None, :]) @ x,
+                rtol=1e-4, atol=1e-4)
+
+    def test_segment_mean_and_max(self):
+        rng = np.random.default_rng(1234)
+        data = rng.standard_normal((20, 4)).astype(np.float32)
+        ids = rng.integers(0, 7, size=20)  # segment 6 of 7 may be empty
+        ids[:3] = 9  # outside: dropped
+        mask = rng.random(20) > 0.2
+        td, ti = torch.from_numpy(data), torch.from_numpy(ids)
+        jd, ji = jnp.asarray(data), jnp.asarray(ids)
+        np.testing.assert_allclose(
+            _np(tseg.segment_mean(td, ti, 8)),
+            np.asarray(jseg.segment_mean(jd, ji, 8)), RTOL, ATOL)
+        np.testing.assert_allclose(
+            _np(tseg.segment_mean(td, ti, 8, torch.from_numpy(mask))),
+            np.asarray(jseg.segment_mean(jd, ji, 8, jnp.asarray(mask))),
+            RTOL, ATOL)
+        np.testing.assert_array_equal(_np(tseg.segment_max(td, ti, 8)),
+                                      np.asarray(jseg.segment_max(jd, ji, 8)))
+        iv = rng.integers(-50, 50, (20, 3)).astype(np.int32)
+        np.testing.assert_array_equal(
+            _np(tseg.segment_max(torch.from_numpy(iv), ti, 8)),
+            np.asarray(jseg.segment_max(jnp.asarray(iv), ji, 8)))
+
+    def test_spmm_auto_regimes_match_jax_and_dense(self, small_graph):
+        from linkpred_tpu.ops import spmm as jspmm
+        from linkpred_tpu_torch.ops import spmm as tspmm
+
+        g, x = small_graph
+        dense = g.dense_adjacency() @ x
+        before = dict(hk.LAUNCHES)
+        for force in ("pallas", "bucketed", "ell", None):
+            got = tspmm.spmm_auto(g.nbr, g.nbr_mask, torch.from_numpy(x),
+                                  force=force)
+            ref = jspmm.spmm_auto(g.nbr, g.nbr_mask, jnp.asarray(x),
+                                  force=force)
+            np.testing.assert_allclose(_np(got), np.asarray(ref),
+                                       rtol=1e-5, atol=1e-5,
+                                       err_msg=f"regime {force}")
+            np.testing.assert_allclose(_np(got), dense, rtol=1e-4, atol=1e-4)
+        w = np.random.default_rng(0).random(g.nbr.shape).astype(np.float32)
+        np.testing.assert_allclose(
+            _np(tspmm.spmm_auto(g.nbr, g.nbr_mask, torch.from_numpy(x), w,
+                                force="bucketed")),
+            _np(tspmm.spmm_auto(g.nbr, g.nbr_mask, torch.from_numpy(x), w,
+                                force="pallas")), rtol=1e-5, atol=1e-5)
+        with pytest.raises(ValueError, match="regime"):
+            tspmm.spmm_auto(g.nbr, g.nbr_mask, torch.from_numpy(x),
+                            force="onehot")
+        assert hk.LAUNCHES == before  # CPU tensors: the plain versions
+
+    def test_spmm_ell_auto_matches_jax(self):
+        rng = np.random.default_rng(6)
+        n, d, nx, f = 50, 9, 70, 12
+        nbr = rng.integers(0, nx, (n, d)).astype(np.int64)
+        mask = rng.random((n, d)) > 0.3
+        w = rng.standard_normal((n, d)).astype(np.float32)
+        x = rng.standard_normal((nx, f)).astype(np.float32)
+        for weight in (None, w):
+            got = hk.spmm_ell_auto(
+                torch.from_numpy(nbr), torch.from_numpy(mask),
+                torch.from_numpy(x),
+                None if weight is None else torch.from_numpy(weight))
+            ref = jpk.spmm_ell_auto(
+                jnp.asarray(nbr, dtype=jnp.int32), jnp.asarray(mask),
+                jnp.asarray(x),
+                None if weight is None else jnp.asarray(weight))
+            np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-5,
+                                       atol=1e-5)
