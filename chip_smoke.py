@@ -21,12 +21,16 @@ scale --family twowl`; K1 at `[50000, 32]` slots and K3 in bf16 over the
 capped ei2 structure), and SEAL (DRNL on the card against the C++ plane,
 `run_seal` at the reference defaults, `run_seal_scale` at collab scale, `cli
 seal`, `cli scale --family seal`; no kernel of its own) with the rest of the
-ops (`spmm_auto`'s regimes, `spmm_ell_auto` on K1, `sddmm_auto` on K2). One
-line per phase; then one JSON line of kernel results, the card's name and power
+ops (`spmm_auto`'s regimes, `spmm_ell_auto` on K1, `sddmm_auto` on K2), and
+the user surface (`graft_entry.entry()` on 'plan' and on K1 and K3, `cli
+--profile-dir` naming K1's and K3's kernels in its trace, `cli --set`, `cli
+report` and `stats --no-plot`, and the TwoWL seed band's floor at 1,000
+epochs). One line per phase; then one JSON line of kernel results, the card's name and power
 limit as nvidia-smi gives them, and last `{"ok": true, "device": {...}}`.
 Nothing catches a failed phase: without a card, or without the rest of the
 repository, it raises and exits non-zero before printing any result. With
-`--only` (groups `slice`, `gcn`, `sweep`, `n2v`, `scale`, `seal`) only those
+`--only` (groups `slice`, `gcn`, `sweep`, `n2v`, `scale`, `seal`,
+`surface`) only those
 groups' phases run and the run ends with a line `{"partial": [...]}` in place
 of the kernels line and the last line: a partial run proves nothing about the
 rest.
@@ -38,6 +42,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -78,6 +83,12 @@ SCALE_TURN_EPOCHS, SCALE_PARITY_EPOCHS = 8, 24
 # epochs; the JAX package's band on the CPU over seeds 0-5 is 0.93780 to
 # 0.94984 (tests/test_torch_bands.py), the floor its minimum less 0.01
 SEAL_AUC_FLOOR = 0.9278
+# TwoWL on fb-pages-food, phase surface_band: one trial of the
+# published-best architecture, 1,000 epochs with the early stop at 800, at
+# seeds 0 and 1; the JAX package's band on the CPU over seeds 0-9 is 0.80883
+# to 0.88318 (tests/test_torch_bands.py), the floor its minimum less 0.01
+TWOWL_AUC_FLOOR = 0.7988
+TWOWL_BAND_SEEDS = (0, 1)
 # the keys `run_seal_scale` returns, those of the JAX package's
 SEAL_SCALE_KEYS = {"nodes", "directed_edges", "hop", "target_pairs",
                    "subgraphs_per_s", "extract_seconds", "mean_subgraph_size",
@@ -1671,6 +1682,162 @@ def seal_phases(dev, hk):
     phase("m3_ops", max_abs_err=errs, launches=launched)
 
 
+def trace_kernel_names(log_dir):
+    """The card's kernel names in the one trace file under `log_dir`."""
+    (name,) = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+    path = os.path.join(log_dir, name)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return path, {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+def files_under(root):
+    """Every file under `root`, but in `.git` and `__pycache__` (a module
+    imported for the first time writes its bytecode there)."""
+    out = []
+    for d, dirs, fs in os.walk(root):
+        dirs[:] = [x for x in dirs if x not in (".git", "__pycache__")]
+        out += [os.path.relpath(os.path.join(d, f), root) for f in fs]
+    return sorted(out)
+
+
+def surface_phases(dev, hk):
+    """The user surface: the entry point, the CLI's --profile-dir and --set,
+    the host-only subcommands, and the TwoWL seed band's floor."""
+    from linkpred_tpu_torch import cli
+    from linkpred_tpu_torch.graft_entry import entry
+    from linkpred_tpu_torch.models import twowl as m
+    from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
+
+    repo = os.getcwd()
+
+    # (surface_entry) the LocalWLNet forward of `entry()` on the card, with
+    # the JAX entry point's 'plan' and on K1 and K3 ('ell'); the counts are
+    # zeroed just before the 'ell' run and read just after
+    fn, args = entry()
+    assert args[1].is_cuda
+    plan = fn(*args)
+    fn, args = entry(agg_1wl="ell")
+    for k in hk.LAUNCHES:
+        hk.LAUNCHES[k] = 0
+    ell = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(hk.LAUNCHES)
+    assert launches["spmm_ell"] > 0 and launches["spmm_bucketed"] > 0, \
+        launches
+    check("entry ell vs plan", ell, plan, F32_TOL)
+    assert torch.isfinite(ell).all()
+    phase("surface_entry", shape=list(ell.shape),
+          max_abs_diff=float((ell - plan).abs().max()), launches=launches)
+
+    def cli_in(tmp, argv):
+        """`cli.main(argv)` in this process with `tmp` as the working
+        directory; returns the printed lines and the files written."""
+        out = io.StringIO()
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                cli.main(argv)
+        finally:
+            os.chdir(repo)
+        return out.getvalue().strip().splitlines(), files_under(tmp)
+
+    # (surface_profile) `--profile-dir` around `twowl --trials 1`: the trace
+    # names K1's and K3's kernels; every output lands under the temporary
+    # directory, none in the repository
+    record = os.path.join(repo, "records_auc",
+                          "fb-pages-food_auc_record_twowl.txt")
+    with open(record, "rb") as f:
+        record_bytes = f.read()
+    repo_files = files_under(repo)
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "prof")
+        for k in hk.LAUNCHES:
+            hk.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        lines, written = cli_in(tmp, [
+            "--quiet", "--profile-dir", prof, "--set", "twowl.epochs=20",
+            "twowl", "--trials", "1"])
+        seconds = time.perf_counter() - t0
+        launches = dict(hk.LAUNCHES)
+        trace, kernels = trace_kernel_names(prof)
+        trace_mb = os.path.getsize(trace) / 2**20
+    k1 = sorted(k for k in kernels if "spmm_ell" in k)
+    k3 = sorted(k for k in kernels if "spmm_bucketed" in k)
+    assert k1 and k3, sorted(kernels)[:20]
+    assert launches["spmm_ell"] > 0 and launches["spmm_bucketed"] > 0, \
+        launches
+    assert lines[-1] == "wrote device trace to " + prof, lines
+    assert lines[-2].startswith("AUC:") and \
+        lines[-2].endswith("(best of 1 trials)"), lines
+    assert "records_auc/fb-pages-food_auc_record_twowl.txt" in written
+    with open(record, "rb") as f:
+        assert f.read() == record_bytes
+    assert files_under(repo) == repo_files, \
+        sorted(set(files_under(repo)) ^ set(repo_files))
+    phase("surface_profile", seconds=seconds, printed=lines[-2:],
+          trace_mb=trace_mb, kernels_in_trace=len(kernels), k1_kernels=k1,
+          k3_kernels=k3, launches=launches, written=written)
+
+    # (surface_set) `--set twowl_trials=2 --set twowl.epochs=20 twowl`
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        lines, written = cli_in(tmp, ["--quiet", "--set", "twowl_trials=2",
+                                      "--set", "twowl.epochs=20", "twowl"])
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(
+                tmp, "records_auc", "fb-pages-food_auc_record_twowl.txt")) as f:
+            recs = f.read().splitlines()
+    assert len(recs) == 2 and all(r.startswith("AUC:") for r in recs), recs
+    assert lines[-1].startswith("AUC:") and \
+        lines[-1].endswith("(best of 2 trials)"), lines
+    phase("surface_set", seconds=seconds, printed=lines[-1], records=recs)
+
+    # (surface_host) `report` and `stats --no-plot` as commands of their
+    # own, in a directory holding copies of the committed results (`compare`
+    # draws with matplotlib, which this machine may lack: the CPU tests hold
+    # it to the JAX command)
+    env = {**os.environ, "PYTHONPATH": repo}
+    printed = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(repo, "records_auc"),
+                        os.path.join(tmp, "records_auc"))
+        shutil.copy(os.path.join(repo, "logs.json"), tmp)
+        for name, argv in (("report", ["report", "--output", "r.html"]),
+                           ("stats", ["stats", "--no-plot"])):
+            proc = subprocess.run(
+                [sys.executable, "-m", "linkpred_tpu_torch.cli", *argv],
+                cwd=tmp, env=env, capture_output=True, text=True, timeout=120)
+            assert proc.returncode == 0, (name, proc.stderr[-2000:])
+            printed[name] = proc.stdout.strip().splitlines()
+        with open(os.path.join(tmp, "r.html")) as f:
+            html = f.read()
+    families = ("logistic", "seal", "twowl")
+    assert all(f"<h2>{f} records</h2>" in html for f in families)
+    assert all(f"<tr><td>{f}</td>" in html for f in families)
+    phase("surface_host", report=printed["report"], stats=printed["stats"],
+          html_bytes=len(html.encode()))
+
+    # (surface_band) the TwoWL seed band's floor: one trial of the
+    # published-best architecture on K1 and K3, 1,000 epochs with the early
+    # stop at 800, the split drawn by default_rng(seed)
+    edges, num_nodes = tp.load_edges()
+    for seed in TWOWL_BAND_SEEDS:
+        run = tp.TwoWLRunConfig(seed=seed)
+        data = tp.build_data(edges, num_nodes, run,
+                             np.random.default_rng(seed))
+        cfg = m.TwoWLConfig(max_degree=data.max_degree, agg_1wl="ell")
+        t0 = time.perf_counter()
+        res = tp.train_routine_fused(data, cfg, run, dev)
+        seconds = time.perf_counter() - t0
+        assert res["test_auc"] >= TWOWL_AUC_FLOOR, (seed, res["test_auc"])
+        phase("surface_band", seed=seed, test_auc=res["test_auc"],
+              best_val=res["best_val"], floor=TWOWL_AUC_FLOOR,
+              epochs=res["epochs_run"], seconds=seconds,
+              train_seconds=res["train_seconds"])
+
+
 def slice_phases(dev, hk, data, run, trn, rates):
     """(c)-(f): TwoWL on fb-pages-food, one trial. Returns K1's largest
     error against its plain version."""
@@ -1834,7 +2001,7 @@ def slice_phases(dev, hk, data, run, trn, rates):
     return max_err
 
 
-GROUPS = ("slice", "gcn", "sweep", "n2v", "scale", "seal")
+GROUPS = ("slice", "gcn", "sweep", "n2v", "scale", "seal", "surface")
 
 
 def main():
@@ -1921,6 +2088,8 @@ def main():
     scale = scale_phases(dev, hk) if "scale" in only else None
     if "seal" in only:
         seal_phases(dev, hk)
+    if "surface" in only:
+        surface_phases(dev, hk)
     if set(only) != set(GROUPS):
         print(json.dumps({"partial": only}))
         return

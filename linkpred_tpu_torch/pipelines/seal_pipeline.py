@@ -154,7 +154,7 @@ def prepare(cfg: SEALConfig, data_dir: Optional[str], *, device,
 
 def run_seal(cfg: SEALConfig = SEALConfig(), data_dir: Optional[str] = None,
              *, device=None, verbose: bool = True,
-             roc_png: Optional[str] = "assets/img/seal_roc.png",
+             roc_png: Optional[str] = None,
              metrics_file: str = "logs/metrics.jsonl",
              checkpoint_prefix: Optional[str] = "checkpoints/seal/model"
              ) -> dict:

@@ -1,15 +1,41 @@
-"""Throughput counters — the counterpart of `ThroughputCounter` in
-`linkpred_tpu/utils/profiling.py`. (Its `device_trace` is the jax profiler;
-the port's traces use `torch.profiler` directly.)
+"""Profiling hooks: `torch.profiler` traces and throughput counters — the
+counterpart of `linkpred_tpu/utils/profiling.py`.
 
-A span measures host time: a caller timing work on the card ends the span's
-body with `torch.cuda.synchronize()`, since PyTorch returns before the card
-finishes."""
+`device_trace` is the CLI's `--profile`: a trace of the whole command that
+TensorBoard's profiler plugin, Perfetto or `chrome://tracing` can read. A
+span of `ThroughputCounter` measures host time: a caller timing work on the
+card ends the span's body with `torch.cuda.synchronize()`, since PyTorch
+returns before the card finishes."""
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
+
+import torch
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str = "logs/profile", cuda: bool = True):
+    """Trace the block with `torch.profiler` and write it into `log_dir` as
+    one `<host>_<pid>.<time>.pt.trace.json` file
+    (`tensorboard_trace_handler`).
+
+    The card's activity (kernels, copies) is recorded beside the host's
+    whenever a card is visible; without one the trace holds the host alone,
+    and stderr says so. `cuda=False` asks for the host alone."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if cuda and torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    elif cuda:
+        print("device_trace: no CUDA device is visible; the trace holds "
+              "host activity only", file=sys.stderr)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
 
 
 class ThroughputCounter:

@@ -1,10 +1,11 @@
 """Result record files in the reference format — the counterpart of
-`linkpred_tpu/utils/records.py` (the writers `run_twowl` uses).
+`linkpred_tpu/utils/records.py`.
 
 `records_auc/<dataset>_auc_record_<family>.txt` holds append-only
-`AUC:x   Time:y   ` lines; `fpr.json`/`tpr.json` hold the best ROC curve;
-a `MetricsLogger` file holds one JSON object per line. The bytes written
-are the reference's.
+`AUC:x   Time:y   ` lines (written by the pipelines, read back by `compare`
+and `report`); `fpr.json`/`tpr.json` hold the best ROC curve; a
+`MetricsLogger` file holds one JSON object per line. The bytes written are
+the reference's.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from typing import List, Optional, Tuple
 
 DEFAULT_RECORDS_DIR = "records_auc"
 
@@ -29,6 +31,33 @@ def write_record(dataset: str, family: str, auc: float, seconds: float,
     with open(path, "a" if append else "w") as f:
         f.write(f"AUC:{round(auc, 4)}   Time:{round(seconds, 4)}   \n")
     return path
+
+
+def read_records(dataset: str, family: str,
+                 records_dir: str = DEFAULT_RECORDS_DIR
+                 ) -> List[Tuple[float, float]]:
+    """Parse `[(auc, time), ...]` from a record file (empty if missing)."""
+    path = record_path(dataset, family, records_dir)
+    if not os.path.exists(path):
+        return []
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            parts = line.split()
+            auc = float(parts[0].split(":")[1])
+            t = float(parts[1].split(":")[1])
+            out.append((auc, t))
+    return out
+
+
+def best_record(dataset: str, family: str,
+                records_dir: str = DEFAULT_RECORDS_DIR
+                ) -> Optional[Tuple[float, float]]:
+    recs = read_records(dataset, family, records_dir)
+    return max(recs, key=lambda r: r[0]) if recs else None
 
 
 def write_roc_json(fpr, tpr, out_dir: str = ".") -> None:

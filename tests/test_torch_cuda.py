@@ -804,3 +804,46 @@ def test_dispatch_entries_launch_k1_and_k2(cuda):
                                rtol=1e-5, atol=1e-4)
     launched = {k: hk.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"spmm_ell": 2, "spmm_bucketed": 1, "sddmm": 1}
+
+
+@pytest.mark.parametrize("agg", ["plan", "ell"])
+def test_entry_on_the_card_matches_cpu(cuda, agg):
+    """`graft_entry.entry()` runs on the card by default and scores the toy
+    graph as its CPU run does (the init is drawn on the host from seed 0);
+    'ell' launches K1 and K3, 'plan' neither."""
+    from linkpred_tpu_torch.graft_entry import entry
+
+    fn, args = entry(agg_1wl=agg)
+    assert args[1].is_cuda
+    before = dict(hk.LAUNCHES)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launched = {k: hk.LAUNCHES[k] - before[k] for k in before}
+    fn_cpu, args_cpu = entry(device="cpu", agg_1wl=agg)
+    torch.testing.assert_close(got.cpu(), fn_cpu(*args_cpu), rtol=1e-5,
+                               atol=1e-5)
+    if agg == "ell":
+        assert launched["spmm_ell"] > 0 and launched["spmm_bucketed"] > 0
+    else:
+        assert set(launched.values()) == {0}, launched
+
+
+def test_device_trace_on_the_card_names_k1(cuda, tmp_path):
+    """`device_trace` records the card's kernels whenever a card is visible:
+    K1's kernel is named in the trace file. The profiler can lose a
+    capture's first events, so K1 is launched many times."""
+    import json
+    import os
+
+    from linkpred_tpu_torch.utils.profiling import device_trace
+
+    nbr, w, x = _operands(SHAPES[0], 0, cuda)
+    with device_trace(str(tmp_path)):
+        for _ in range(1000):
+            hk.spmm_ell(nbr, w, x)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("spmm_ell" in k for k in kernels), sorted(kernels)[:10]

@@ -134,8 +134,62 @@ _SEAL_SCRIPT = textwrap.dedent("""
 """)
 
 
-# no module of the JAX package, of the earlier benchmarks, of jax or of optax
-# may be loaded by a run of the port
+# the user surface: the config tree, the entry point and the host-only
+# subcommands (run in a copy of the committed results)
+_SURFACE_SCRIPTS = {
+    "config": """
+        from linkpred_tpu_torch import config
+        cfg = config.apply_overrides(config.Config(),
+                                     ["twowl.epochs=3", "seal.hop=2"])
+        assert (cfg.twowl.epochs, cfg.seal.hop) == (3, 2)
+    """,
+    "graft_entry": """
+        from linkpred_tpu_torch.graft_entry import entry
+        fn, args = entry(device="cpu", agg_1wl="ell")
+        assert fn(*args).shape == (12,)
+    """,
+    "compare": """
+        run_cli(["compare"])
+        assert os.path.getsize("assets/img/compare_auc.png") > 0
+    """,
+    "stats": """
+        assert "components:" in run_cli(["stats", "--no-plot"])
+        assert "matplotlib" not in sys.modules
+    """,
+    "report": """
+        run_cli(["report", "--output", "r.html"])
+        assert os.path.getsize("r.html") > 0
+        assert "matplotlib" not in sys.modules
+    """,
+}
+
+_SURFACE_PRELUDE = textwrap.dedent("""
+    import atexit
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    def run_cli(argv):
+        from linkpred_tpu_torch import cli
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        assert out.getvalue().strip(), argv
+        return out.getvalue()
+
+    _tmp = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, _tmp)
+    for _d in ("records_auc", os.path.join("assets", "img")):
+        shutil.copytree(_d, os.path.join(_tmp, _d))
+    shutil.copy("logs.json", _tmp)
+    os.chdir(_tmp)
+""")
+
+
+# no module of the JAX package, of its entry point, of the earlier
+# benchmarks, of jax or of optax may be loaded by a run of the port
 _PRELUDE = textwrap.dedent("""
     import sys
 
@@ -143,7 +197,7 @@ _PRELUDE = textwrap.dedent("""
         foreign = sorted(
             name for name in sys.modules
             if name.split(".")[0] in ("linkpred_tpu", "benchmarks", "jax",
-                                      "jaxlib", "optax"))
+                                      "jaxlib", "optax", "__graft_entry__"))
         assert not foreign, foreign
 """)
 
@@ -177,6 +231,13 @@ def test_twowl_scale_runs_without_jax():
 
 def test_seal_runs_without_jax():
     _run_without_jax(_SEAL_SCRIPT)
+
+
+@pytest.mark.parametrize("name", sorted(_SURFACE_SCRIPTS))
+def test_surface_runs_without_jax(name):
+    _run_without_jax(_SURFACE_PRELUDE
+                     + textwrap.dedent(_SURFACE_SCRIPTS[name])
+                     + "assert_port_stands_alone()\nprint('JAX-FREE OK')\n")
 
 
 def test_no_card_raises(monkeypatch, tmp_path):

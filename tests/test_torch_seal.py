@@ -530,18 +530,21 @@ def test_cli_parses_and_runs_seal(tmp_path, monkeypatch, capsys):
 
     monkeypatch.setattr(device, "cuda_device", lambda: torch.device("cpu"))
     monkeypatch.chdir(tmp_path)
-    small = sp.SEALConfig(max_neighbors=20, dimension=16)
     seen = []
+    real = sp.run_seal
 
-    def small_config(seed):
-        seen.append(seed)
-        return dataclasses.replace(small, seed=seed)
+    def spy(cfg, **kw):
+        seen.append((cfg.seed, cfg.epochs, cfg.hop, cfg.max_neighbors,
+                     cfg.dimension, kw["roc_png"]))
+        return real(cfg, **kw)
 
-    monkeypatch.setattr(sp, "SEALConfig", small_config)
-    cli.main(["--quiet", "--seed", "1", "seal", "--epochs", "1", "--hop",
+    monkeypatch.setattr(sp, "run_seal", spy)
+    cli.main(["--quiet", "--seed", "1", "--set", "seal.max_neighbors=20",
+              "--set", "seal.dimension=16", "seal", "--epochs", "1", "--hop",
               "auto"])
     line = capsys.readouterr().out.strip().splitlines()[-1]
-    assert line.startswith("AUC:") and "Time:" in line and seen == [1]
+    assert line.startswith("AUC:") and "Time:" in line
+    assert seen == [(1, 1, "auto", 20, 16, None)]
     assert (tmp_path / "records_auc" /
             "fb-pages-food_auc_record_seal.txt").exists()
     assert (tmp_path / "checkpoints" / "seal" / "model-1000.npz").exists()
@@ -557,3 +560,16 @@ def test_cli_parses_and_runs_seal(tmp_path, monkeypatch, capsys):
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["nodes"] == 1500 and res["hop"] == 1
     assert np.isfinite(res["loss_last_quarter"])
+
+
+def test_bare_run_seal_writes_no_plot(tmp_path, monkeypatch):
+    """`run_seal` draws its ROC plot only where `roc_png` names a file, as
+    `run_logistic` and `run_twowl` do: a bare call writes nothing under
+    `assets/` (and needs no matplotlib)."""
+    monkeypatch.chdir(tmp_path)
+    res = sp.run_seal(sp.SEALConfig(epochs=1, hop=1, max_neighbors=20,
+                                    dimension=8), device="cpu", verbose=False)
+    assert 0.0 <= res["auc"] <= 1.0
+    assert not (tmp_path / "assets").exists()
+    assert (tmp_path / "records_auc" /
+            "fb-pages-food_auc_record_seal.txt").exists()
