@@ -25,12 +25,19 @@ ops (`spmm_auto`'s regimes, `spmm_ell_auto` on K1, `sddmm_auto` on K2), and
 the user surface (`graft_entry.entry()` on 'plan' and on K1 and K3, `cli
 --profile-dir` naming K1's and K3's kernels in its trace, `cli --set`, `cli
 report` and `stats --no-plot`, and the TwoWL seed band's floor at 1,000
-epochs). One line per phase; then one JSON line of kernel results, the card's name and power
+epochs), and the multi-GPU stack (`linkpred_tpu_torch.parallel`) as four
+gloo ranks that share the card: the collectives gloo takes on CUDA
+tensors, the node-sharded, pipelined and halo SpMMs on K3 at collab scale
+and at both of the GCN's widths, the TwoWL step with the ei2 slots split over the ranks and the
+trial-sharded sweep on K1 and K3, SEAL's data-parallel step, the dry run,
+`train_collab` node-sharded and halo at the full config on K3 and K2, and
+`torchrun --nproc-per-node 1 ... scale --family gcn` on NCCL, and
+`train_sharded`'s collectives over a one-rank NCCL mesh). One line per phase; then one JSON line of kernel results, the card's name and power
 limit as nvidia-smi gives them, and last `{"ok": true, "device": {...}}`.
 Nothing catches a failed phase: without a card, or without the rest of the
 repository, it raises and exits non-zero before printing any result. With
 `--only` (groups `slice`, `gcn`, `sweep`, `n2v`, `scale`, `seal`,
-`surface`) only those
+`surface`, `parallel`) only those
 groups' phases run and the run ends with a line `{"partial": [...]}` in place
 of the kernels line and the last line: a partial run proves nothing about the
 rest.
@@ -284,7 +291,8 @@ def busy_shares(profiles, rate):
 
 def check(name, got, ref, tol):
     """Assert `got` close to `ref` within `tol`; return the max abs error."""
-    torch.cuda.synchronize()
+    if got.is_cuda:
+        torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == ref.dtype, name
     assert torch.isfinite(got).all(), name
     torch.testing.assert_close(got.float(), ref.float(), **tol, msg=name)
@@ -731,7 +739,8 @@ def gcn_phases(dev, hk):
               library=reason, device_ms={"k3": line})
 
     return {"launches": launches, "k3_err": k3_err, "k3_time": k3_time[128],
-            "k2_err": k2_err, "k2_time": k2_time, "graph": g}
+            "k2_err": k2_err, "k2_time": k2_time, "graph": g,
+            "problem": problem}
 
 
 def offset_copy(x):
@@ -1838,6 +1847,722 @@ def surface_phases(dev, hk):
               train_seconds=res["train_seconds"])
 
 
+# ---------------------------------------------------------------------------
+# the parallel group: the multi-GPU stack as four gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 4
+# one SGD step of the TwoWL step with the ei2 slots split over the ranks
+# against the whole split's (the reference's own check, 1e-5)
+PAR_SGD_TOL = 1e-5
+# the trial-sharded sweep against the unsharded one, per trial, after 5
+# Adam epochs at lr 1e-3 from the same parameters: K1 and K3 run at other
+# widths (8 trials a rank against 32) and may take their other kernel, so
+# sums come in other orders; Adam keeps f32 noise below lr-size steps at
+# this lr (ROADMAP F1 protocol)
+PAR_TRIAL_LOSS_RTOL, PAR_TRIAL_AUC_ATOL = 1e-3, 2e-3
+# a DGCNN step with the batch split over the ranks against the whole
+# batch's on the card (cuBLAS and cuDNN sum in other orders: the card
+# test's DGCNN tolerance)
+PAR_SEAL_TOL = dict(rtol=1e-4, atol=1e-6)
+# the first 10 losses of a 4-rank train_collab (bf16) against the one-rank
+# run from the same parameters and batches: the aggregations sum each row's
+# slots in the same order (one bf16 ulp where the shard's K3 takes its
+# other kernel), the weights' gradients add four blocks' f32 partials
+PAR_LOSS_ATOL = 5e-3
+PAR_LOSS_STEPS = 10
+# the largest difference of a replicated weight between two ranks: their
+# gradients are all-reduced before each step and Adam's update is
+# elementwise, so the ranks hold one value
+PAR_SPREAD_BOUND = 0.0
+PAR_LABEL = "4 ranks on one card, gloo; not a scaling number"
+# the feature widths of the GCN's two aggregations (emb_dim, hidden)
+PAR_WIDTHS = (64, 128)
+
+
+def _par_x(rows, f, dtype, seed):
+    """Features drawn on the host from `seed`: the same on every rank."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((rows, f), generator=g).to(dtype)
+
+
+def _padded(x, rows_total):
+    return torch.cat([x, x.new_zeros((rows_total - x.shape[0], x.shape[1]))])
+
+
+def _halo_table_rows(lay, k):
+    """Global (relabelled) rows of rank `k`'s local table `[own | ghosts |
+    hubs]` in `spmm_halo`: what its K3 launch reads."""
+    rows, s = lay.rows_per_shard, lay.n_shards
+    own = np.arange(k * rows, (k + 1) * rows)
+    ghosts = [j * rows + lay.send_idx[j, k] for j in range(s)]
+    hubs = ([j * rows + lay.hub_send[j] for j in range(s)]
+            if lay.hub_capacity else [])
+    return np.concatenate([own, *ghosts, *hubs])
+
+
+def par_ops_rank(rank, world, dev, grp, inputs, save_dir):
+    """par_ops on this rank: every sharded SpMM at collab scale, at both
+    widths of the GCN's aggregations (F = 64, the embedding, and F = 128,
+    the hidden layer: at 58,750 output rows a rank K3 runs its warp-per-row
+    kernel on the 128-byte rows of F = 64 bf16 and its wide kernel on the
+    others), against the one-rank K3 and against K3's plain version; rank 0
+    saves its bf16 operands of each width for the timings. Returns errors
+    and K3 launches."""
+    from linkpred_tpu_torch.ops import hopper_kernels as hk
+    from linkpred_tpu_torch.parallel import collectives as C
+    from linkpred_tpu_torch.parallel import halo as H
+    from linkpred_tpu_torch.parallel import spmm_shard as S
+
+    N, rows = inputs["nodes"], inputs["ns"]["rows_per_shard"]
+    whole_ops = tuple(torch.as_tensor(a).to(dev) if isinstance(a, np.ndarray)
+                      else a for a in inputs["whole_ops"])
+    ops = S.node_sharded_operands(inputs["ns"]["stacked"], rank, dev)
+    err, before = {}, hk.LAUNCHES["spmm_bucketed"]
+    own = slice(rank * rows, min((rank + 1) * rows, N))
+    n_own = own.stop - own.start
+    saved = {}
+
+    def cpu(t):
+        return tuple(a.cpu() if torch.is_tensor(a) else a for a in t)
+
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for f in PAR_WIDTHS:
+            tag = ("bf16" if dtype == torch.bfloat16 else "f32") + f" F={f}"
+            keep = rank == 0 and dtype == torch.bfloat16
+            x = _par_x(N, f, dtype, 1).to(dev)
+            t = _par_x(N, f, dtype, 2).to(dev)
+            whole_x = hk.spmm_bucketed(x, *whole_ops)
+            whole_t = hk.spmm_bucketed(t, *whole_ops)
+
+            def vs(name, got, one_rank, plain_ref):
+                # this rank's real rows against the one-rank K3; all its
+                # rows (the last block's padding too) against the plain
+                # version
+                err[f"{name} {tag} vs one rank"] = check(
+                    name, got[: one_rank.shape[0]], one_rank, tol)
+                err[f"{name} {tag} vs plain"] = check(name, got, plain_ref,
+                                                      tol)
+
+            out = S.spmm_node_sharded(grp, x, N, rows, ops)
+            vs("node_sharded", out, whole_x[own],
+               hk.spmm_bucketed_reference(x, *ops))
+            xb = _padded(x, rows * world)[rank * rows:(rank + 1) * rows]
+            for chunks in (1, 2, 4):
+                p = S.spmm_node_sharded_pipelined(grp, xb.contiguous(), N,
+                                                  rows, ops, chunks)
+                vs(f"pipelined {chunks}", p, whole_x[own],
+                   hk.spmm_bucketed_reference(x, *ops))
+            xs = x.clone().requires_grad_()
+            sym = S.spmm_node_sharded_sym(grp, xs, N, rows, ops)
+            tb = _padded(t, rows * world)[rank * rows:(rank + 1) * rows]
+            (sym.float() * tb.float()).sum().backward()
+            vs("node_sharded_sym grad", xs.grad[own], whole_t[own],
+               hk.spmm_bucketed_reference(_padded(t, rows * world),
+                                          *ops)[:n_own])
+            if keep:
+                saved[f"node_sharded F={f}"] = (x.cpu(), cpu(ops))
+            for name, lay in inputs["halo"].items():
+                hops = lay.operands(rank, dev)
+                order = torch.as_tensor(lay.order, device=dev)
+                rows_h = lay.rows_per_shard
+                own_h = slice(rank * rows_h, min((rank + 1) * rows_h, N))
+                x_new = _padded(x[order], rows_h * world)
+                t_new = _padded(t[order], rows_h * world)
+                xh = x_new[own_h.start:own_h.start + rows_h].clone()
+                xh.requires_grad_()
+                hout = H.spmm_halo_sym(grp, xh, hops)
+                (hout.float() * t_new[own_h.start:own_h.start + rows_h]
+                 .float()).sum().backward()
+                table_rows = torch.as_tensor(_halo_table_rows(lay, rank),
+                                             device=dev)
+                table, tab_t = x_new[table_rows], t_new[table_rows]
+                err[f"halo {name} {tag} local K3 again"] = check(
+                    "halo table", hk.spmm_bucketed(table, *hops.k3),
+                    hout.detach(), dict(rtol=0, atol=0))
+                vs(f"halo {name}", hout.detach(), whole_x[order][own_h],
+                   hk.spmm_bucketed_reference(table, *hops.k3))
+                vs(f"halo {name} grad", xh.grad, whole_t[order][own_h],
+                   hk.spmm_bucketed_reference(tab_t, *hops.k3))
+                if keep and name == "train":
+                    saved[f"halo F={f}"] = (table.cpu(), cpu(hops.k3))
+            if f != PAR_WIDTHS[-1]:
+                continue
+            # the pair scoring's gather and K2 on it (on the hidden layer's
+            # rows), as the sharded step runs it
+            ids = torch.as_tensor(inputs["pairs"], device=dev)
+            table = C.gather_by_id(_padded(x, rows * world)[
+                rank * rows:(rank + 1) * rows], torch.cat([ids[0], ids[1]]),
+                grp)
+            e = ids.shape[1]
+            ar = torch.arange(e, device=dev, dtype=torch.int32)
+            err[f"gather_by_id {tag}"] = check(
+                "gather_by_id", table, torch.cat([x[ids[0]], x[ids[1]]]),
+                dict(rtol=0, atol=0))
+            err[f"sddmm {tag} vs plain"] = check(
+                "sddmm", hk.sddmm(ar, ar + e, table, table),
+                hk.sddmm_reference(ar, ar + e, table, table), K2_TOL)
+            if keep:
+                saved["sddmm"] = (ar.cpu(), (ar + e).cpu(), table.cpu())
+    if rank == 0:
+        torch.save(saved, os.path.join(save_dir, "rank0_operands.pt"))
+    return err, hk.LAUNCHES["spmm_bucketed"] - before
+
+
+def par_twowl_rank(rank, world, dev, mesh, inputs):
+    """par_twowl on this rank: one SGD step with the ei2 slots split over
+    the ranks against the whole split's, then 32 trials x 5 epochs with the
+    trial axis split over the ranks (counted: the K1 and K3 launches of
+    that run), and on rank 0 the unsplit run of all 32 trials."""
+    from linkpred_tpu_torch.models import twowl as m
+    from linkpred_tpu_torch.ops import hopper_kernels as hk
+    from linkpred_tpu_torch.parallel import collectives as C
+    from linkpred_tpu_torch.parallel import dp
+    from linkpred_tpu_torch.parallel import make_mesh
+    import torch.distributed as dist
+
+    data, cfg = inputs["data"], inputs["cfg"]
+    world_grp = dist.group.WORLD
+    P = 8
+    pos = torch.arange(P, device=dev)
+    neg = torch.arange(P, device=dev)
+    leaves = {}
+    for name, arrays in (("sharded", dp.shard_twowl_split(mesh, data.train,
+                                                          dev)),
+                         ("whole", m.SplitArrays.from_split(data.train, dev))):
+        params = m.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        sgd = torch.optim.SGD(m.tree_leaves(params), lr=cfg.learning_rate)
+        dp.reduce_gradients_on_step(sgd, world_grp)
+        m.train_step(params, sgd, None, pos, neg, arrays, cfg,
+                     data.num_nodes)
+        leaves[name] = m.tree_leaves(params)
+    out = {"sgd_max_abs_dparam": max(
+        float((a - b).detach().abs().max())
+        for a, b in zip(leaves["sharded"], leaves["whole"])),
+        "sgd_spread": C.max_spread(leaves["sharded"], world_grp)}
+
+    tmesh = make_mesh(world, shape=(world, 1), device_type=dev.type)
+    T = 32
+    pos_e, neg_e = (torch.as_tensor(a, device=dev).long()
+                    for a in inputs["batches"])
+    trn = m.SplitArrays.from_split(data.train, dev)
+    val = m.SplitArrays.from_split(data.val, dev)
+    val_y = torch.as_tensor(data.val.y, dtype=torch.float32, device=dev)
+    deg = torch.as_tensor(data.node_deg, dtype=torch.long, device=dev)
+
+    def sweep(params, lrs, rates):
+        return m.train_loop_trials(
+            params, m.adam_trials_init(params), None, pos_e, neg_e, trn, val,
+            val_y, deg, cfg, lrs, data.num_nodes, rates)
+
+    params = m.init_params_trials(cfg, T, torch.Generator().manual_seed(3),
+                                  dev)
+    lrs = torch.full((T,), 1e-3, device=dev)
+    rates = m.TrialRates(*[torch.zeros(T, device=dev)] * 4)
+    p_k, _, l_k, r_k = dp.shard_twowl_trials(
+        tmesh, params, m.adam_trials_init(params), lrs, rates)
+    for k in hk.LAUNCHES:
+        hk.LAUNCHES[k] = 0
+    _, best, (losses, aucs) = sweep(p_k, l_k, r_k)
+    torch.cuda.synchronize(dev)
+    out["launches"] = dict(hk.LAUNCHES)
+    grp = tmesh.get_group("data")
+    losses = C.all_gather_blocks(losses.T.contiguous(), grp).T
+    aucs = C.all_gather_blocks(aucs.T.contiguous(), grp).T
+    out["trials_here"] = int(l_k.shape[0])
+    if rank == 0:
+        _, best_all, (loss_all, auc_all) = sweep(params, lrs, rates)
+        out["trial_loss_max_rel_diff"] = float(
+            ((losses - loss_all).abs() / loss_all.abs()).max())
+        out["trial_auc_max_abs_diff"] = float((aucs - auc_all).abs().max())
+        out["mean_val_auc_last_epoch"] = float(auc_all[-1].mean())
+    # K1 at this path's width, against its plain version
+    slots, weight = trn.msg_slots, trn.msg_sweight
+    x = _par_x(int(trn.num_msg), 8 * cfg.channels_1wl, torch.float32,
+               4).to(dev)
+    out["k1_err"] = check("K1 trial-sharded width",
+                          hk.spmm_ell(slots, weight, x),
+                          hk.spmm_ell_reference(slots, weight, x), F32_TOL)
+    return out
+
+
+def par_seal_rank(rank, world, dev, inputs):
+    """par_seal on this rank: one SGD step of the DGCNN with the batch
+    split over the ranks (each its rows of the whole batch's dropout mask)
+    and, on rank 0, the one-process step on the whole batch."""
+    from linkpred_tpu_torch.models import seal
+    from linkpred_tpu_torch.parallel import dp
+    import torch.distributed as dist
+
+    batch, keep, lr, k = (inputs[n] for n in ("batch", "keep", "lr", "k"))
+    per = batch[0].shape[0] // world
+    mine = slice(rank * per, (rank + 1) * per)
+
+    def step(parts, keep_rows, reduce):
+        params = seal.init_params(torch.Generator().manual_seed(0),
+                                  batch[2].shape[2], k, dev)
+        sgd = torch.optim.SGD(seal.leaves(params), lr=lr)
+        if reduce:
+            dp.reduce_gradients_on_step(sgd, dist.group.WORLD)
+        loss = seal.loss_fn(params, *parts[:4], parts[4], k,
+                            dropout_rate=0.5,
+                            keep=torch.as_tensor(keep_rows, device=dev))
+        loss.backward()
+        sgd.step()
+        return [p.detach() for p in seal.leaves(params)]
+
+    parts = tuple(torch.as_tensor(a[mine], device=dev) for a in batch)
+    got = step(parts, keep[mine], True)
+    out = {}
+    if rank == 0:
+        whole = step(tuple(torch.as_tensor(a, device=dev) for a in batch),
+                     keep, False)
+        for a, b in zip(got, whole):
+            torch.testing.assert_close(a, b, **PAR_SEAL_TOL)
+        out["max_abs_dparam"] = max(float((a - b).abs().max())
+                                    for a, b in zip(got, whole))
+    return out
+
+
+def _rank_device():
+    """Every rank's device: card 0, which the ranks share."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _gloo_rates(dev, reps=5):
+    """Host-clock ms of the world's all-gather of 4 and 16 MB a rank (bf16)
+    and all-reduce of 8 and 32 MB (f32) on `dev`'s tensors: what the
+    sharded steps pay for each collective."""
+    import torch.distributed as dist
+
+    from linkpred_tpu_torch.parallel.collectives import all_gather_single
+
+    out = {}
+    for mb in (4, 16):
+        x = torch.ones((mb * 2**20 // 256, 128), dtype=torch.bfloat16,
+                       device=dev)
+        buf = x.new_empty((dist.get_world_size() * x.shape[0], 128))
+        y = torch.ones((mb * 2**18 // 128 * 2, 128), device=dev)
+        for name, fn in ((f"all_gather {mb} MB a rank bf16",
+                          lambda: all_gather_single(buf, x)),
+                         (f"all_reduce {2 * mb} MB f32",
+                          lambda: dist.all_reduce(y))):
+            fn()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(dev)
+            out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def par_job_a(rank, world, inputs, save_dir):
+    """Job A of the parallel group, on every rank: the probe, par_ops,
+    par_twowl, par_seal and the dry run, each timed on the host clock."""
+    import torch.distributed as dist
+
+    from linkpred_tpu_torch.graft_entry import dryrun_multichip
+    from linkpred_tpu_torch.parallel import collectives as C
+    from linkpred_tpu_torch.parallel import make_mesh
+
+    dev = _rank_device()
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    out["probe"] = C.probe(dist.group.WORLD, dev)
+    mesh = make_mesh(world, shape=(1, world), device_type=dev.type)
+    out["mesh_backends"] = {d: dist.get_backend(mesh.get_group(d))
+                            for d in mesh.mesh_dim_names}
+    out["gloo_ms"] = _gloo_rates(dev)
+    seconds["probe"] = time.perf_counter() - t0
+    for name, fn in (
+            ("ops", lambda: par_ops_rank(rank, world, dev,
+                                         mesh.get_group("edge"),
+                                         inputs["ops"], save_dir)),
+            ("twowl", lambda: par_twowl_rank(rank, world, dev, mesh,
+                                             inputs["twowl"])),
+            ("seal", lambda: par_seal_rank(rank, world, dev,
+                                           inputs["seal"]))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize(dev)
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        dryrun_multichip(world, device=dev)
+    out["dryrun"] = printed.getvalue().splitlines()
+    seconds["dryrun"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def _train_counted(gs, hk, cfg, mesh, dev, built, params=None):
+    """`train_sharded` with the kernels' counts (and K3's by width) zeroed
+    just before and read just after."""
+    for counts in (hk.LAUNCHES, hk.LAUNCHES_BY_WIDTH):
+        for k in counts:
+            counts[k] = 0
+    res, local, losses = gs.train_sharded(cfg, mesh, dev, built, params)
+    torch.cuda.synchronize(dev)
+    return res, local, losses, dict(hk.LAUNCHES, **hk.LAUNCHES_BY_WIDTH)
+
+
+def par_job_b(rank, world, cfgs, builts, params_np):
+    """Job B of the parallel group, on every rank: `train_sharded` at the
+    full config, node-sharded then halo, each counted (`_train_counted`);
+    the weights' largest difference across ranks."""
+    import torch.distributed as dist
+
+    from linkpred_tpu_torch.ops import hopper_kernels as hk
+    from linkpred_tpu_torch.parallel import collectives as C
+    from linkpred_tpu_torch.parallel import make_mesh
+    from linkpred_tpu_torch.pipelines import gcn_scale as gs
+
+    dev = _rank_device()
+    mesh = make_mesh(world, shape=(1, world), device_type=dev.type)
+    runs = []
+    for cfg, built, p_np in zip(cfgs, builts, params_np):
+        res, local, losses, counts = _train_counted(
+            gs, hk, cfg, mesh, dev, built, gs.params_from_jax(p_np, dev))
+        res["max_param_spread"] = C.max_spread(
+            [local[k] for k in ("w1", "w1s", "w2", "w2s")],
+            mesh.get_group("edge"))
+        runs.append((res, losses, counts))
+        dist.barrier()
+    return runs
+
+
+def par_nccl_rank(port, cfgs, builts, out_path):
+    """par_nccl's second process: rank 0 of a one-rank NCCL job joined as
+    `torchrun` would start it (`parallel.distributed.initialize` from the
+    environment), so that every collective of `train_sharded` runs on NCCL
+    once: the probe's list; the host builds (`build_sharded`, one shard,
+    node-sharded and halo) broadcast from rank 0 by `broadcast_object_list`
+    as `train_sharded` sends its own (they come from the parent, which
+    holds the problem: a build here would cost ~25 s); then `train_sharded`
+    over a (1, 1) mesh on each (the halo run's all-to-all)."""
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    from linkpred_tpu_torch.ops import hopper_kernels as hk
+    from linkpred_tpu_torch.parallel import collectives as C
+    from linkpred_tpu_torch.parallel import distributed, make_mesh
+    from linkpred_tpu_torch.pipelines import gcn_scale as gs
+
+    assert distributed.initialize()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"backend": dist.get_backend(),
+           "probe": C.probe(dist.group.WORLD, dev)}
+    mesh = make_mesh(1, shape=(1, 1), device_type="cuda")
+    out["mesh_backends"] = {d: dist.get_backend(mesh.get_group(d))
+                            for d in mesh.mesh_dim_names}
+    box = [builts]
+    dist.broadcast_object_list(box, src=0)
+    out["runs"] = [_train_counted(gs, hk, cfg, mesh, dev, built)[::3]
+                   for cfg, built in zip(cfgs, box[0])]
+    distributed.finish()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def parallel_phases(dev, hk, problem=None):
+    """The parallel group: the multi-GPU stack (`linkpred_tpu_torch.
+    parallel`) as four gloo ranks that share the one card (NCCL refuses two
+    ranks on one card; gloo moves CUDA tensors through the host). Job A:
+    par_probe, par_ops, par_twowl, par_seal, par_dryrun; the parent then
+    times K3 (at both widths), K2 and K1 on rank 0's operands (four
+    processes on one card make any in-rank timing meaningless); job B:
+    par_collab; then par_nccl: the torchrun command at world size 1 on
+    NCCL, and `train_sharded` over a one-rank NCCL mesh. Returns the kernel
+    rows' numbers."""
+    from linkpred_tpu_torch.models import twowl as m
+    from linkpred_tpu_torch.ops import spmm
+    from linkpred_tpu_torch.parallel import multihost
+    from linkpred_tpu_torch.parallel.halo import HaloLayout
+    from linkpred_tpu_torch.pipelines import gcn_scale as gs
+    from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
+
+    t_group = time.perf_counter()
+    cfg = gs.ScaleGCNConfig(steps=60, learning_rate=3e-3)
+    cfg_halo = dataclasses.replace(cfg, aggregation="halo")
+    t0 = time.perf_counter()
+    if problem is None:
+        problem = gs.build_problem(cfg)
+    build_seconds = time.perf_counter() - t0
+    built_ns = gs.build_sharded(cfg, PAR_RANKS, problem)
+    built_halo = gs.build_sharded(cfg_halo, PAR_RANKS, problem)
+    lay = built_halo["layout"]
+    # par_ops' second halo layout: the other hub rule on a cheap ordering
+    t0 = time.perf_counter()
+    other = HaloLayout.build(problem[0], PAR_RANKS, reorder="balance",
+                             hub_min_refs=None if lay.num_hubs else 3)
+    other_seconds = time.perf_counter() - t0
+    whole = spmm.BucketedEll.from_graph(problem[0]).operands("cpu")
+    phase("par_build", label=PAR_LABEL, nodes=cfg.nodes,
+          build_seconds=build_seconds if build_seconds > 1 else
+          "reused the gcn group's",
+          layout_seconds={"node_sharded": built_ns["layout_seconds"],
+                          "halo": built_halo["layout_seconds"],
+                          "halo other hub rule": other_seconds},
+          rows_per_shard=built_ns["rows_per_shard"],
+          halo={n: {"ghost_capacity": l_.ghost_capacity,
+                    "edge_cut": l_.edge_cut, "num_hubs": l_.num_hubs,
+                    "hub_capacity": l_.hub_capacity,
+                    "collective_bytes_per_layer_f128_bf16":
+                        l_.collective_bytes_per_layer(128, 2)}
+                for n, l_ in (("train", lay), ("other", other))})
+
+    run = tp.TwoWLRunConfig(epochs=5)
+    edges, num_nodes = tp.load_edges()
+    data = tp.build_data(edges, num_nodes, run, np.random.default_rng(0))
+    twowl_cfg = m.TwoWLConfig(max_degree=data.max_degree, agg_1wl="ell",
+                              dp_emb=0.0, dp_1wl0=0.0, dp_1wl1=0.0,
+                              dp_2wl=0.0)
+    rng = np.random.default_rng(0)
+    B, K, F = 64, 60, 40
+    adj = (rng.random((B, K, K)) < 0.1).astype(np.float32)
+    adj = np.triu(adj, 1)
+    adj = adj + adj.transpose(0, 2, 1)
+    a_tilde = adj + np.eye(K, dtype=np.float32)[None]
+    pairs = gs.batch_schedule(cfg, problem[1])[0]
+    inputs = {
+        "ops": {"nodes": cfg.nodes, "ns": built_ns,
+                "halo": {"train": lay, "other": other},
+                "whole_ops": tuple(a.numpy() if torch.is_tensor(a) else a
+                                   for a in whole),
+                "pairs": pairs},
+        "twowl": {"data": data, "cfg": twowl_cfg,
+                  "batches": tp.batch_schedule(data, run)},
+        "seal": {"batch": ((1.0 / a_tilde.sum(axis=2)).astype(np.float32),
+                           a_tilde, rng.standard_normal((B, K, F)).astype(
+                               np.float32), np.ones((B, K), bool),
+                           rng.integers(0, 2, B).astype(np.int64)),
+                 "keep": rng.random((B, 128)) < 0.5, "lr": 0.05, "k": 30},
+    }
+    save_dir = tempfile.mkdtemp(prefix="par_ops_")
+    t0 = time.perf_counter()
+    job_a = multihost.launch(par_job_a, PAR_RANKS, save_dir,
+                             args=(inputs, save_dir), timeout_s=600,
+                             threads=2)
+    job_a_seconds = time.perf_counter() - t0
+    first = job_a[0]
+    phase("par_probe", collectives=first["probe"],
+          mesh_backends=first["mesh_backends"], gloo_ms=first["gloo_ms"],
+          all_ok=all(v == "ok" for v in first["probe"].values()))
+    assert first["mesh_backends"] == {"data": "gloo", "edge": "gloo"}
+    assert all(v == "ok" for r in job_a for v in r["probe"].values())
+    ops_err = {}
+    for r in job_a:
+        for k, v in r["ops"][0].items():
+            ops_err[k] = max(ops_err.get(k, 0.0), v)
+    k3_launches = [r["ops"][1] for r in job_a]
+    assert all(n > 0 for n in k3_launches), k3_launches
+    phase("par_ops", max_abs_err_over_ranks=ops_err,
+          k3_launches_per_rank=k3_launches,
+          seconds_per_rank=[r["seconds"]["ops"] for r in job_a])
+    tw = [r["twowl"] for r in job_a]
+    assert all(t["sgd_max_abs_dparam"] < PAR_SGD_TOL for t in tw), tw
+    assert tw[0]["sgd_spread"] <= PAR_SPREAD_BOUND, tw[0]
+    assert tw[0]["trial_loss_max_rel_diff"] <= PAR_TRIAL_LOSS_RTOL, tw[0]
+    assert tw[0]["trial_auc_max_abs_diff"] <= PAR_TRIAL_AUC_ATOL, tw[0]
+    assert [t["trials_here"] for t in tw] == [32 // PAR_RANKS] * PAR_RANKS
+    twowl_launches = {k: sum(t["launches"][k] for t in tw)
+                      for k in tw[0]["launches"]}
+    assert twowl_launches["spmm_ell"] > 0 \
+        and twowl_launches["spmm_bucketed"] > 0, twowl_launches
+    phase("par_twowl", sgd_max_abs_dparam=[t["sgd_max_abs_dparam"]
+                                           for t in tw],
+          sgd_spread_bound=PAR_SPREAD_BOUND, sgd_spread=tw[0]["sgd_spread"],
+          trial_loss_max_rel_diff=tw[0]["trial_loss_max_rel_diff"],
+          trial_auc_max_abs_diff=tw[0]["trial_auc_max_abs_diff"],
+          mean_val_auc_last_epoch=tw[0]["mean_val_auc_last_epoch"],
+          sweep_launches_summed_over_ranks=twowl_launches,
+          k1_err=max(t["k1_err"] for t in tw),
+          seconds_per_rank=[r["seconds"]["twowl"] for r in job_a])
+    phase("par_seal", max_abs_dparam=job_a[0]["seal"]["max_abs_dparam"],
+          tol=PAR_SEAL_TOL,
+          seconds_per_rank=[r["seconds"]["seal"] for r in job_a])
+    phase("par_dryrun", printed=first["dryrun"],
+          seconds_per_rank=[r["seconds"]["dryrun"] for r in job_a],
+          job_seconds=job_a_seconds)
+    assert first["dryrun"][-1].startswith("dryrun_multichip OK")
+
+    # the timings, in this process, on rank 0's operands
+    saved = torch.load(os.path.join(save_dir, "rank0_operands.pt"))
+    shutil.rmtree(save_dir, ignore_errors=True)
+    times = {}
+    for name in ("node_sharded", "halo"):
+        for f in PAR_WIDTHS:
+            x, ops = saved[f"{name} F={f}"]
+            x = x.to(dev)
+            ops = tuple(a.to(dev) if torch.is_tensor(a) else a for a in ops)
+            library, reason = library_spmm(
+                lambda: bucketed_csr(*ops, x.shape[0], dtype=torch.bfloat16),
+                x, hk.spmm_bucketed(x, *ops))
+            times[f"{name} F={f}"] = report(
+                time_in_turns(lambda: hk.spmm_bucketed_reference(x, *ops),
+                              lambda: hk.spmm_bucketed(x, *ops)),
+                spmm_bucketed_work(x, *ops), hk, dev, library, reason)
+            phase("par_ops_time", kernel="K3", path=name, x=list(x.shape),
+                  output_rows=int(ops[0].shape[0]),
+                  slots=int(ops[2].shape[0]), **times[f"{name} F={f}"])
+    src, dst, table = (a.to(dev) for a in saved["sddmm"])
+    library, reason = library_sddmm(src, dst, table, table,
+                                    hk.sddmm(src, dst, table, table))
+    times["sddmm"] = report(
+        time_in_turns(lambda: hk.sddmm_reference(src, dst, table, table),
+                      lambda: hk.sddmm(src, dst, table, table)),
+        sddmm_work(src, dst, table, table), hk, dev, library, reason)
+    phase("par_ops_time", kernel="K2", path="gcn sharded scoring",
+          pairs=int(src.shape[0]), table=list(table.shape), **times["sddmm"])
+    trn = m.SplitArrays.from_split(data.train, dev)
+    x1 = _par_x(int(trn.num_msg), 8 * twowl_cfg.channels_1wl, torch.float32,
+                4).to(dev)
+    slots, weight = trn.msg_slots, trn.msg_sweight
+    library, reason = library_spmm(
+        lambda: ell_csr(slots, weight, x1.shape[0]), x1,
+        hk.spmm_ell(slots, weight, x1))
+    times["spmm_ell"] = report(
+        time_in_turns(lambda: hk.spmm_ell_reference(slots, weight, x1),
+                      lambda: hk.spmm_ell(slots, weight, x1)),
+        spmm_ell_work(slots, weight, x1), hk, dev, library, reason)
+    phase("par_ops_time", kernel="K1", path="twowl trial-sharded (8 of 32 "
+          "trials a rank)", nbr=list(slots.shape), x=list(x1.shape),
+          **times["spmm_ell"])
+    out = {"ops_err": ops_err, "times": times,
+           "twowl_launches": twowl_launches,
+           "k1_err": max(t["k1_err"] for t in tw)}
+    out["collab"] = _par_collab(dev, cfg, cfg_halo, problem, built_ns,
+                                built_halo)
+    _par_nccl(cfg, cfg_halo, problem)
+    phase("par_group", seconds=time.perf_counter() - t_group)
+    return out
+
+
+def _par_collab(dev, cfg, cfg_halo, problem, built_ns, built_halo):
+    """par_collab: `train_collab` at the full config over the four ranks,
+    node-sharded and halo, from the seeded parameters (a halo run renames
+    the nodes, its embedding rows and every pair with them), held to the
+    one-rank run of its first steps. Returns each run's launches summed
+    over the ranks."""
+    from linkpred_tpu_torch.ops import spmm
+    from linkpred_tpu_torch.parallel import multihost
+    from linkpred_tpu_torch.pipelines import gcn_scale as gs
+
+    p0 = gs.init_params(cfg, torch.Generator().manual_seed(cfg.seed), "cpu")
+    p_np = {k: v.detach().numpy() for k, v in p0.items()}
+    t0 = time.perf_counter()
+    job_b = multihost.launch(par_job_b, PAR_RANKS,
+                             tempfile.mkdtemp(prefix="par_collab_"),
+                             args=([cfg, cfg_halo], [built_ns, built_halo],
+                                   [p_np, p_np]),
+                             timeout_s=900, threads=2)
+    job_b_seconds = time.perf_counter() - t0
+    # the one-rank run of the first steps, from the same parameters and
+    # batches
+    ops_whole = spmm.BucketedEll.from_graph(problem[0]).operands(dev)
+    batches = gs.batch_schedule(cfg, problem[1])
+    collab = {}
+    for i, name in enumerate(("node_sharded", "halo")):
+        res, losses, _ = job_b[0][i]
+        counts = {k: sum(r[i][2].get(k, 0) for r in job_b)
+                  for k in job_b[0][i][2]}
+        per_rank = [r[i][2]["spmm_bucketed"] for r in job_b]
+        params = gs.params_from_jax(p_np, dev)
+        ref = gs.train_steps(
+            params, gs.adam(params, cfg.learning_rate),
+            torch.as_tensor(batches[:PAR_LOSS_STEPS].astype(np.int32),
+                            device=dev), ops_whole, cfg).cpu().numpy()
+        loss_diff = float(np.abs(losses[:PAR_LOSS_STEPS] - ref).max())
+        spread = max(r[i][0]["max_param_spread"] for r in job_b)
+        assert loss_diff <= PAR_LOSS_ATOL, (name, loss_diff)
+        assert spread <= PAR_SPREAD_BOUND, (name, spread)
+        assert res["loss_decreased"], res
+        assert res["test_auc"] >= GCN_AUC_FLOOR, res
+        assert all(n > 0 for n in per_rank) and counts["sddmm"] > 0, counts
+        assert all(counts.get(f"spmm_bucketed F={f}", 0) > 0
+                   for f in PAR_WIDTHS), counts
+        assert res["aggregation"] == name, res
+        collab[name] = counts
+        phase("par_collab", label=PAR_LABEL,
+              ranks=PAR_RANKS, launches_summed_over_ranks=counts,
+              k3_launches_per_rank=per_rank,
+              first_losses=[float(v) for v in losses[:PAR_LOSS_STEPS]],
+              one_rank_first_losses=[float(v) for v in ref],
+              max_abs_loss_diff=loss_diff, loss_tol=PAR_LOSS_ATOL,
+              spread_bound=PAR_SPREAD_BOUND,
+              **dict(res, max_param_spread=spread))
+    phase("par_collab_job", seconds=job_b_seconds)
+    return collab
+
+
+def _par_nccl(cfg, cfg_halo, problem):
+    """par_nccl: the command a multi-card user runs, here at world size 1
+    (one rank takes the one-card path), then `train_sharded` over a
+    one-rank NCCL mesh (`par_nccl_rank`), whose node-sharded run is held to
+    the command's one-card run of the same 8 steps."""
+    import multiprocessing
+    import socket
+
+    from linkpred_tpu_torch.pipelines import gcn_scale as gs
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "linkpred_tpu_torch.cli", "scale",
+         "--family", "gcn", "--steps", "8"],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["steps"] == 8 and res["shards"] == 1, res
+    assert np.isfinite(res["loss_first_quarter"])
+    phase("par_nccl", world_size=1, backend="nccl", rc=proc.returncode,
+          seconds=time.perf_counter() - t0, **res)
+
+    # the CLI's config at 8 steps, over a one-rank mesh
+    t0 = time.perf_counter()
+    cfgs = [dataclasses.replace(gs.ScaleGCNConfig(), steps=8)]
+    cfgs.append(dataclasses.replace(cfgs[0], aggregation="halo"))
+    builts = [gs.build_sharded(c, 1, problem) for c in cfgs]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out_path = os.path.join(tempfile.mkdtemp(prefix="par_nccl_"), "out.json")
+    child = multiprocessing.get_context("spawn").Process(
+        target=par_nccl_rank, args=(port, cfgs, builts, out_path))
+    child.start()
+    child.join(300)
+    if child.exitcode is None:
+        child.terminate()
+        child.join(10)
+    assert child.exitcode == 0, child.exitcode
+    with open(out_path) as f:
+        got = json.load(f)
+    assert got["backend"] == "nccl", got["backend"]
+    assert got["mesh_backends"] == {"data": "nccl", "edge": "nccl"}, got
+    assert all(v == "ok" for v in got["probe"].values()), got["probe"]
+    (ns, ns_counts), (halo, halo_counts) = got["runs"]
+    for k in ("loss_first_quarter", "loss_last_quarter"):
+        assert abs(ns[k] - res[k]) <= PAR_LOSS_ATOL, (k, ns[k], res[k])
+    assert ns["shards"] == halo["shards"] == 1
+    assert np.isfinite([halo["loss_first_quarter"], halo["test_auc"]]).all()
+    assert min(ns_counts["spmm_bucketed"], halo_counts["spmm_bucketed"],
+               ns_counts["sddmm"], halo_counts["sddmm"]) > 0
+    phase("par_nccl_mesh", world_size=1, backend=got["backend"],
+          mesh_backends=got["mesh_backends"], collectives=got["probe"],
+          seconds=time.perf_counter() - t0,
+          node_sharded=dict(ns, launches=ns_counts),
+          one_card_loss_quarters=[res["loss_first_quarter"],
+                                  res["loss_last_quarter"]],
+          loss_tol=PAR_LOSS_ATOL, halo=dict(halo, launches=halo_counts))
+
+
 def slice_phases(dev, hk, data, run, trn, rates):
     """(c)-(f): TwoWL on fb-pages-food, one trial. Returns K1's largest
     error against its plain version."""
@@ -2001,7 +2726,8 @@ def slice_phases(dev, hk, data, run, trn, rates):
     return max_err
 
 
-GROUPS = ("slice", "gcn", "sweep", "n2v", "scale", "seal", "surface")
+GROUPS = ("slice", "gcn", "sweep", "n2v", "scale", "seal", "surface",
+          "parallel")
 
 
 def main():
@@ -2090,6 +2816,8 @@ def main():
         seal_phases(dev, hk)
     if "surface" in only:
         surface_phases(dev, hk)
+    par = parallel_phases(dev, hk, gcn and gcn.pop("problem")) \
+        if "parallel" in only else None
     if set(only) != set(GROUPS):
         print(json.dumps({"partial": only}))
         return
@@ -2123,6 +2851,29 @@ def main():
         row("spmm_bucketed", "twowl scale", "spmm_bucketed.cu", 249,
             scale["launches"]["spmm_bucketed"], scale["k3_err"]["bf16"],
             scale["k3_time"]),
+        # the parallel group: launches summed over the four ranks of its
+        # main paths (par_collab's two runs, par_twowl's trial-sharded
+        # sweep), errors the worst of any rank against the plain version
+        # (K3: both dtypes at the row's width), times on rank 0's bf16
+        # operands; K3 has a row for each width of the GCN's aggregations
+        *[row("spmm_bucketed", f"gcn {name} F={f} bf16, 4 gloo ranks",
+              "spmm_bucketed.cu", 249,
+              par["collab"][name][f"spmm_bucketed F={f}"],
+              max(v for k, v in par["ops_err"].items()
+                  if k.startswith(prefixes) and f" F={f} " in k),
+              par["times"][f"{name} F={f}"])
+          for name, prefixes in (
+              ("node_sharded", ("node_sharded", "pipelined")),
+              ("halo", ("halo",)))
+          for f in PAR_WIDTHS],
+        row("sddmm", "gcn node_sharded and halo, 4 gloo ranks", "sddmm.cu",
+            144, par["collab"]["node_sharded"]["sddmm"]
+            + par["collab"]["halo"]["sddmm"],
+            max(v for k, v in par["ops_err"].items()
+                if k.startswith("sddmm")), par["times"]["sddmm"]),
+        row("spmm_ell", "twowl trial-sharded, 4 gloo ranks", "spmm_ell.cu", 68,
+            par["twowl_launches"]["spmm_ell"], par["k1_err"],
+            par["times"]["spmm_ell"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

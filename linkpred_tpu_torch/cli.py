@@ -7,6 +7,7 @@
     python -m linkpred_tpu_torch.cli twowl --refine 32 --refine-mode adaptive
     python -m linkpred_tpu_torch.cli --profile-dir logs/prof twowl --trials 1
     python -m linkpred_tpu_torch.cli scale --family gcn   # collab-scale GCN
+    torchrun --nproc-per-node N -m linkpred_tpu_torch.cli scale --family gcn
     python -m linkpred_tpu_torch.cli scale --family twowl # TwoWL at 50k nodes
     python -m linkpred_tpu_torch.cli scale --family seal  # SEAL at 235k nodes
     python -m linkpred_tpu_torch.cli seal --epochs 50 --hop auto
@@ -28,6 +29,7 @@ with matplotlib.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -331,8 +333,21 @@ def _cmd_scale(args):
     prints the result as one JSON line."""
     import json
 
+    from linkpred_tpu_torch.parallel import distributed
     from linkpred_tpu_torch.utils.device import cuda_device
 
+    # under torchrun (--family gcn): join the job first, so this rank runs
+    # on card LOCAL_RANK and train_collab splits the graph over the ranks;
+    # rank 0 alone prints
+    lead = True
+    if args.family != "gcn" and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        raise SystemExit(f"scale --family {args.family} runs on one card; "
+                         "only --family gcn splits over torchrun's ranks")
+    joined = args.family == "gcn" and distributed.initialize()
+    if joined:
+        import torch.distributed as dist
+
+        lead = dist.get_rank() == 0
     device = cuda_device()
 
     def overrides(**extra):
@@ -369,8 +384,11 @@ def _cmd_scale(args):
 
         res = train_collab(
             ScaleGCNConfig(**overrides(steps=args.steps, dtype=args.dtype)),
-            device=device, verbose=not args.quiet)
-    print(json.dumps(res))
+            device=device, verbose=lead and not args.quiet)
+    if lead:
+        print(json.dumps(res))
+    if joined:
+        distributed.finish()
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -170,9 +170,12 @@ def sort_pool(cat: torch.Tensor, z4: torch.Tensor, node_mask: torch.Tensor,
 def forward(params: DGCNNParams, d_inv: torch.Tensor, a_tilde: torch.Tensor,
             x: torch.Tensor, node_mask: torch.Tensor, threshold_k: int,
             generator: torch.Generator | None = None,
-            dropout_rate: float = DROPOUT_RATE) -> torch.Tensor:
+            dropout_rate: float = DROPOUT_RATE,
+            keep: torch.Tensor | None = None) -> torch.Tensor:
     """Batched DGCNN forward -> logits [B, 2]. Dropout draws from
-    `generator` (a generator of the tensors' device); None: no dropout."""
+    `generator` (a generator of the tensors' device), or takes its mask
+    `keep` [B, 128] bool as given (the data-parallel step gives each rank
+    its rows of the whole batch's mask); neither: no dropout."""
     cat, z4 = graph_conv_layers(params, d_inv, a_tilde, x)
     pooled = sort_pool(cat, z4, node_mask, threshold_k)  # [B, k, 96]
     c1 = pooled @ params.wc1  # conv1d(width = stride = 96): [B, k, 16]
@@ -180,19 +183,21 @@ def forward(params: DGCNNParams, d_inv: torch.Tensor, a_tilde: torch.Tensor,
     c2 = F.conv1d(c1.transpose(1, 2), params.wc2.permute(2, 1, 0))
     h = c2.transpose(1, 2).reshape(c2.shape[0], -1)  # [B, (k-4) * 32]
     h = torch.relu(h @ params.w1 + params.b1)
-    if generator is not None and dropout_rate > 0:
+    if keep is None and generator is not None and dropout_rate > 0:
         keep = torch.rand(h.shape, generator=generator,
                           device=h.device) < 1.0 - dropout_rate
+    if keep is not None and dropout_rate > 0:
         h = torch.where(keep, h / (1.0 - dropout_rate), 0.0)
     return h @ params.w2 + params.b2
 
 
 def loss_fn(params: DGCNNParams, d_inv, a_tilde, x, node_mask, y,
             threshold_k: int, generator=None,
-            dropout_rate: float = DROPOUT_RATE) -> torch.Tensor:
+            dropout_rate: float = DROPOUT_RATE,
+            keep: torch.Tensor | None = None) -> torch.Tensor:
     """Mean softmax cross-entropy over the batch (integer labels)."""
     logits = forward(params, d_inv, a_tilde, x, node_mask, threshold_k,
-                     generator, dropout_rate)
+                     generator, dropout_rate, keep)
     return F.cross_entropy(logits, y.long())
 
 

@@ -25,7 +25,7 @@ paired=False)`; it is the semantic check of the paired path.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -260,6 +260,10 @@ class SplitArrays:
     e2_mask: torch.Tensor | None = None
     e1_plan: tuple = ()
     e2_plan: tuple = ()
+    # the paired 2-WL aggregation, `(x, fwd_ops, bwd_ops, kernel) -> [R,
+    # C]` over e1_cops; a split of a slice of the slots gets one that
+    # completes the partial sum (`parallel.dp.shard_twowl_split`)
+    paired_sum: Callable = gather_sum_composed
 
     @property
     def num_msg(self) -> int:
@@ -340,8 +344,8 @@ def _paired_norm(arrays: SplitArrays, msg_mask: torch.Tensor,
     ones_pred = torch.ones(R - msg_mask.shape[0], dtype=torch.float32,
                            device=msg_mask.device)
     rm1 = _swap(torch.cat([msg_mask.float(), ones_pred]))
-    deg1 = gather_sum_composed(rm1[:, None], *arrays.e1_cops,
-                               kernel)[:, 0] + 1.0
+    deg1 = arrays.paired_sum(rm1[:, None], *arrays.e1_cops,
+                              kernel)[:, 0] + 1.0
     dinv1 = torch.rsqrt(deg1.clamp(min=1e-12))
     mA = dinv1 * rm1
     return dinv1, _swap(dinv1), mA, _swap(mA)
@@ -428,7 +432,7 @@ def forward(params: dict, cfg: TwoWLConfig, node_deg: torch.Tensor,
             hA = e @ lA["w"].to(cd)
             hB = e @ lB["w"].to(cd)
             h2 = torch.cat([hA * mA, _swap(hB * mB)], dim=1)
-            out = gather_sum_composed(h2, *arrays.e1_cops, kernel)
+            out = arrays.paired_sum(h2, *arrays.e1_cops, kernel)
             hA = out[:, :C2] * outA + selfA * hA + lA["b"].to(cd)
             hB = _swap(out[:, C2:]) * outB + selfB * hB + lB["b"].to(cd)
             hA = torch.relu(drop(graph_norm(lA["gn"], hA, cfg.eps),
@@ -744,7 +748,7 @@ def forward_trials(params: dict, cfg: TwoWLConfig, node_deg: torch.Tensor,
             hA = torch.einsum("rtc,tcd->rtd", e, lA["w"])
             hB = torch.einsum("rtc,tcd->rtd", e, lB["w"])
             h2 = torch.cat([hA * mA, _swap(hB * mB)], dim=-1)
-            out = gather_sum_composed(h2, *arrays.e1_cops, kernel)
+            out = arrays.paired_sum(h2, *arrays.e1_cops, kernel)
             hA = out[..., :C2] * outA + selfA * hA + lA["b"][None]
             hB = _swap(out[..., C2:]) * outB + selfB * hB + lB["b"][None]
             hA = graph_norm(lA["gn"], hA, cfg.eps)

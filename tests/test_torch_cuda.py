@@ -847,3 +847,48 @@ def test_device_trace_on_the_card_names_k1(cuda, tmp_path):
         events = json.load(f)["traceEvents"]
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
     assert any("spmm_ell" in k for k in kernels), sorted(kernels)[:10]
+
+
+# ---------------------------------------------------------------------------
+# the multi-GPU stack: gloo ranks that share the one card
+# ---------------------------------------------------------------------------
+
+
+def test_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on `cuda:0` (gloo moves the CUDA tensors through the
+    host; NCCL refuses two ranks on one card): each rank's node-sharded,
+    pipelined and halo aggregations and their gradients on K3 against K3's
+    plain version on the same operands (f32: rtol 1e-5 as above, held as
+    atol 1e-5 on values of order 1), and the TwoWL step with the ei2 slots
+    split over the ranks against the whole split's, both on K1 and K3 (one
+    SGD step, 1e-5). Every rank launched K3 (and K1)."""
+    import torch_ranks
+    from linkpred_tpu_torch.data.graph import Graph
+    from linkpred_tpu_torch.parallel import multihost
+
+    rng = np.random.default_rng(0)
+    n = 301
+    lo, hi = rng.integers(0, n, 1500), rng.integers(0, n, 1500)
+    g = Graph.from_undirected_edges(lo[lo != hi], hi[lo != hi], num_nodes=n)
+    d = np.asarray(g.degree, np.float64) + 1.0
+    inv = (1.0 / np.sqrt(d)).astype(np.float32)
+    g = dataclasses.replace(g, nbr_weight=np.ascontiguousarray(
+        inv[:, None] * inv[g.nbr]))
+    x = rng.standard_normal((n, 32)).astype(np.float32)
+    t = rng.standard_normal((n, 32)).astype(np.float32)
+    pairs = np.stack([rng.integers(0, 40, 160), rng.integers(0, 40, 160)], 1)
+    data = build_twowl_data(pairs[pairs[:, 0] != pairs[:, 1]], 40, rng=rng,
+                            ei2_bucket=64)
+    cfg = m.TwoWLConfig(max_degree=data.max_degree, channels_1wl=16,
+                        channels_2wl=8, agg_1wl="ell", dp_emb=0.0,
+                        dp_1wl0=0.0, dp_1wl1=0.0, dp_2wl=0.0)
+    params = m.tree_map(lambda p: p.detach().numpy(), m.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    out = multihost.launch(
+        torch_ranks.card_job, 2, str(tmp_path),
+        args=(g, x, t, (data.train, cfg, params, np.arange(4), np.arange(4),
+                        data.num_nodes)), timeout_s=600)
+    for err, launches in out:
+        for k, v in err.items():
+            assert v <= 1e-5, (k, v)
+        assert launches["spmm_bucketed"] > 0 and launches["spmm_ell"] > 0

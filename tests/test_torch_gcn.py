@@ -244,11 +244,32 @@ def test_plain_versions_give_the_same_step():
 
 
 def test_halo_and_several_cards_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    """Without a mesh the halo path, which splits the graph over ranks,
+    raises; so does a process that sees several cards with no process
+    group, naming the torchrun command (it must not quietly use one card)."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node N"):
         tgs.train_collab(_cfg(aggregation="halo"), device="cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node N"):
         tgs.train_collab(_cfg(), device="cuda")
+
+
+def test_nccl_with_more_ranks_than_cards_raises(monkeypatch):
+    """`distributed.initialize` under torchrun's environment: NCCL with
+    more ranks on the host than visible cards raises before it joins, and
+    neither remaps the ranks nor changes the backend."""
+    from linkpred_tpu_torch.parallel import distributed
+
+    for k, v in dict(RANK="1", WORLD_SIZE="2", LOCAL_RANK="1",
+                     LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                     MASTER_PORT="1").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: pytest.fail(
+        "set_device called before the check"))
+    with pytest.raises(RuntimeError, match="2 ranks on this host and 1"):
+        distributed.initialize(backend="nccl", device_type="cuda")
+    assert not torch.distributed.is_initialized()
 
 
 def test_throughput_counter_matches_reference(monkeypatch):

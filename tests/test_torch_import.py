@@ -136,6 +136,54 @@ _SEAL_SCRIPT = textwrap.dedent("""
 
 # the user surface: the config tree, the entry point and the host-only
 # subcommands (run in a copy of the committed results)
+# the multi-GPU stack: a 2-rank gloo job of the halo SpMM and of the TwoWL
+# step with the ei2 slots split over the ranks (the rank bodies of
+# tests/torch_ranks.py); the parent and each rank check their modules
+_PARALLEL_SCRIPT = textwrap.dedent("""
+    import dataclasses
+    import sys
+    import tempfile
+    import numpy as np
+    import torch
+    sys.path.insert(0, "tests")
+    import torch_ranks
+    from linkpred_tpu_torch.data.graph import Graph
+    from linkpred_tpu_torch.data.twowl import build_twowl_data
+    from linkpred_tpu_torch.models import twowl as m
+    from linkpred_tpu_torch.parallel import multihost
+    from linkpred_tpu_torch.parallel.halo import HaloLayout
+
+    def job(rank, world, layouts, x, t, twowl_args):
+        torch_ranks.halo_ops(rank, world, layouts, x, t)
+        torch_ranks.twowl_sgd_step(rank, world, *twowl_args)
+        return torch_ranks.jax_modules()
+
+    if __name__ == "__main__":
+        rng = np.random.default_rng(0)
+        lo, hi = rng.integers(0, 60, 240), rng.integers(0, 60, 240)
+        g = Graph.from_undirected_edges(lo[lo != hi], hi[lo != hi],
+                                        num_nodes=60)
+        g = dataclasses.replace(g, nbr_weight=np.ones_like(g.nbr_mask,
+                                                           np.float32))
+        x = rng.standard_normal((60, 4)).astype(np.float32)
+        pairs = np.stack([rng.integers(0, 20, 60), rng.integers(0, 20, 60)], 1)
+        d = build_twowl_data(pairs[pairs[:, 0] != pairs[:, 1]], 20, rng=rng,
+                             ei2_bucket=32)
+        cfg = m.TwoWLConfig(max_degree=d.max_degree, channels_1wl=8,
+                            channels_2wl=8, agg_1wl="ell")
+        params = m.tree_map(lambda t: t.detach().numpy(), m.init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"))
+        twowl_args = (d.train, cfg, params, np.arange(3), np.arange(3),
+                      d.num_nodes)
+        layouts = {"halo": (HaloLayout.build(g, 2), None)}
+        got = multihost.launch(job, 2, tempfile.mkdtemp(),
+                               args=(layouts, x, x, twowl_args))
+        assert got == [[], []], got
+        assert_port_stands_alone()
+        print("JAX-FREE OK")
+""")
+
+
 _SURFACE_SCRIPTS = {
     "config": """
         from linkpred_tpu_torch import config
@@ -231,6 +279,20 @@ def test_twowl_scale_runs_without_jax():
 
 def test_seal_runs_without_jax():
     _run_without_jax(_SEAL_SCRIPT)
+
+
+def test_parallel_ranks_run_without_jax(tmp_path):
+    """The script runs from a file: spawned ranks import the main module
+    by its path to find the function they run."""
+    path = tmp_path / "parallel_job.py"
+    path.write_text(_PRELUDE + _PARALLEL_SCRIPT)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, str(path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX-FREE OK" in proc.stdout
 
 
 @pytest.mark.parametrize("name", sorted(_SURFACE_SCRIPTS))

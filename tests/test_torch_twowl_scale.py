@@ -3,6 +3,7 @@ package on the CPU: the host build array-equal for both generators, the
 schedules equal, the pipeline at toy size, and the new CLI subcommands."""
 
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -171,14 +172,17 @@ def test_cli_parses_and_runs_new_subcommands(tmp_path, monkeypatch, capsys):
 
     # `logistic` at its full config is a card's work; here its pipeline runs
     # at a small one through the same command function
+    from linkpred_tpu_torch import config as tconfig
     from linkpred_tpu_torch.models.word2vec import SGNSConfig
     from linkpred_tpu_torch.pipelines import logistic_pipeline as lp
 
     small = dataclasses.replace(
         lp.LogisticConfig(), num_walks=4, walk_length=8,
         embed=SGNSConfig(dim=16, window=4, epochs=1))
-    monkeypatch.setattr(lp, "LogisticConfig",
-                        lambda seed: dataclasses.replace(small, seed=seed))
+    # the command reads the family's config from the tree's default, which
+    # `config.py` builds when it is first imported
+    monkeypatch.setattr(tconfig, "Config",
+                        functools.partial(tconfig.Config, logistic=small))
     cli.main(["--quiet", "--seed", "35", "logistic"])
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("AUC:") and "Time:" in line
