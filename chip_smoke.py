@@ -30,9 +30,13 @@ gloo ranks that share the card: the collectives gloo takes on CUDA
 tensors, the node-sharded, pipelined and halo SpMMs on K3 at collab scale
 and at both of the GCN's widths, the TwoWL step with the ei2 slots split over the ranks and the
 trial-sharded sweep on K1 and K3, SEAL's data-parallel step, the dry run,
-`train_collab` node-sharded and halo at the full config on K3 and K2, and
+`train_collab` node-sharded and halo at the full config on K3 and K2, the
+distributed node2vec (the routed and the replicated walks on fb-pages-food
+and the collab graph, `train_sgns_mesh` at the logistic family's config and
+at 235,000 x 128, each held to its one-card or one-process counterpart),
 `torchrun --nproc-per-node 1 ... scale --family gcn` on NCCL, and
-`train_sharded`'s collectives over a one-rank NCCL mesh). One line per phase; then one JSON line of kernel results, the card's name and power
+`train_sharded`'s, `train_sgns_mesh`'s and the routed walk's collectives
+over a one-rank NCCL mesh). One line per phase; then one JSON line of kernel results, the card's name and power
 limit as nvidia-smi gives them, and last `{"ok": true, "device": {...}}`.
 Nothing catches a failed phase: without a card, or without the rest of the
 repository, it raises and exits non-zero before printing any result. With
@@ -69,8 +73,10 @@ BF16_TOL = dict(rtol=2**-7, atol=1e-6)
 K2_TOL = dict(rtol=1e-5, atol=1e-4)
 # test AUC after 60 steps: the JAX package's band on the CPU over seeds 0-4
 # is 0.90773 to 0.91057 (tests/test_torch_bands.py), the floor its minimum
-# less 0.01
+# less 0.01; phase (j) runs seed 0, the port's seed nearest the floor (its
+# seeds 1 and 2 are cut to fit the smoke's time: ROADMAP F6)
 GCN_AUC_FLOOR = 0.8977
+GCN_SEEDS = (0,)
 # the sweep of phase (p), bench.py's headline config: 32 trials x 1000
 # epochs. The floors sit below the JAX package's own run of this config
 # (CPU: winner test 0.9097, best val 0.8804) because the port's init draws
@@ -79,23 +85,28 @@ SWEEP_TRIALS, SWEEP_EPOCHS = 32, 1000
 SWEEP_TEST_FLOOR, SWEEP_VAL_FLOOR = 0.85, 0.80
 TURN_EPOCHS = 100  # the sweep in turns 'ell', 'plan', 'plan', 'ell'
 REFINE_EPOCHS = 100  # phase (q)
-# the logistic family, phase (v): test AUC at seeds 35 and 36 (the JAX
-# package over 20 seeds: 0.7988 +- 0.013, min 0.7757)
+# the logistic family, phase (v): test AUC at seed 35 (seed 36 cut to fit
+# the smoke's time: ROADMAP F6; dn_sgns holds the same floor from the
+# distributed embeddings) (the JAX package over 20 seeds: 0.7988 +- 0.013,
+# min 0.7757)
 LOGISTIC_AUC_FLOOR = 0.76
 # TwoWL at 50k nodes, phase (w): test AUC after 96 epochs (the bar of the
 # reference's gate for this config; its record is 0.9285)
 SCALE_AUC_FLOOR = 0.85
 SCALE_TURN_EPOCHS, SCALE_PARITY_EPOCHS = 8, 24
-# SEAL, phase seal_run: test AUC at seeds 0 and 1 after the reference's 50
-# epochs; the JAX package's band on the CPU over seeds 0-5 is 0.93780 to
-# 0.94984 (tests/test_torch_bands.py), the floor its minimum less 0.01
+# SEAL, phase seal_run: test AUC at seed 0 after the reference's 50 epochs
+# (seed 1 cut to fit the smoke's time: ROADMAP F6); the JAX package's band
+# on the CPU over seeds 0-5 is 0.93780 to 0.94984
+# (tests/test_torch_bands.py), the floor its minimum less 0.01
 SEAL_AUC_FLOOR = 0.9278
+SEAL_SEEDS = (0,)
 # TwoWL on fb-pages-food, phase surface_band: one trial of the
 # published-best architecture, 1,000 epochs with the early stop at 800, at
-# seeds 0 and 1; the JAX package's band on the CPU over seeds 0-9 is 0.80883
-# to 0.88318 (tests/test_torch_bands.py), the floor its minimum less 0.01
+# seed 0 (seed 1 cut to fit the smoke's time: ROADMAP F6); the JAX
+# package's band on the CPU over seeds 0-9 is 0.80883 to 0.88318
+# (tests/test_torch_bands.py), the floor its minimum less 0.01
 TWOWL_AUC_FLOOR = 0.7988
-TWOWL_BAND_SEEDS = (0, 1)
+TWOWL_BAND_SEEDS = (0,)
 # the keys `run_seal_scale` returns, those of the JAX package's
 SEAL_SCALE_KEYS = {"nodes", "directed_edges", "hop", "target_pairs",
                    "subgraphs_per_s", "extract_seconds", "mean_subgraph_size",
@@ -659,10 +670,10 @@ def gcn_phases(dev, hk):
         launches_per_step=rates.get("sddmm F=128", 0))
     phase("i_k2_time", case="step 16384 x128 bf16", **k2_time)
 
-    # (j) the main path: `train_collab` at the full config for seeds 0-2.
+    # (j) the main path: `train_collab` at the full config (GCN_SEEDS).
     # The launch counts are zeroed just before and read just after each run.
     launches = None
-    for seed in (0, 1, 2):
+    for seed in GCN_SEEDS:
         for k in hk.LAUNCHES:
             hk.LAUNCHES[k] = 0
         res = gs.train_collab(dataclasses.replace(cfg, seed=seed), device=dev,
@@ -1086,10 +1097,12 @@ def sweep_phases(dev, hk, data, run, trn, rates):
 
     # (s) width scan, f32: K3 on the train split's forward and transpose
     # operands and K1 on its message slots, each against the plain version,
-    # the bucket-sum that 'plan' runs and the library call, in turns
+    # the bucket-sum that 'plan' runs and the library call, in turns (at
+    # three of the six widths of 32-1,024 it once scanned, to fit the
+    # smoke's time: ROADMAP F6)
     bwd = trn.e1_cops[1]
     msg_plan = (trn.msg_plan[1], trn.msg_plan[2])
-    for f in (32, 64, 128, 256, 512, 1024):
+    for f in (32, 256, 1024):
         x, xm = feats(R, f), feats(S, f)
         line = {}
         for name, ops in (("k3_fwd", fwd), ("k3_bwd", bwd)):
@@ -1136,7 +1149,7 @@ def n2v_phases(dev, collab_graph):
     """(t)-(v): node2vec walks, SGNS embeddings and the logistic family.
     These paths run no hand-written kernel (the JAX package's run no Pallas
     kernel either): the walk and SGNS loops are gathers, `index_add_` and
-    matrix products."""
+    matrix products. Returns phase (t)'s hops/s on the card by graph."""
     from linkpred_tpu_torch.data import io as dio
     from linkpred_tpu_torch.data import split as sp
     from linkpred_tpu_torch.data.graph import Graph
@@ -1168,6 +1181,7 @@ def n2v_phases(dev, collab_graph):
     assert walks.dtype == torch.int32 and walks_are_valid(walks, starts, eng)
     phase("t_walks", graph="fb-pages-food residual", walkers=len(walks),
           length=16, seconds=dt, hops_per_s=len(walks) * 15 / dt)
+    rates = {"fb": len(walks) * 15 / dt}
 
     t0 = time.perf_counter()
     big = WalkEngine(dataclasses.replace(collab_graph, nbr_weight=None),
@@ -1183,6 +1197,7 @@ def n2v_phases(dev, collab_graph):
           directed_edges=collab_graph.num_edges, walkers=65_536, length=16,
           table_build_seconds=table_seconds, seconds=dt,
           hops_per_s=65_536 * 15 / dt)
+    rates["collab"] = 65_536 * 15 / dt
     del big
 
     # (u) SGNS at the shape of the reference's throughput gate: a 235,000 x
@@ -1224,9 +1239,9 @@ def n2v_phases(dev, collab_graph):
     phase("u_sgns_cliques", within_cosine=float(within),
           across_cosine=float(across))
 
-    # (v) the logistic family end to end at its default config, seeds 35 and
-    # 36, every output under a temporary directory, no plot
-    for seed in (35, 36):
+    # (v) the logistic family end to end at its default config, seed 35,
+    # every output under a temporary directory, no plot
+    for seed in (35,):
         out = io.StringIO()
         with tempfile.TemporaryDirectory() as tmp:
             with contextlib.redirect_stdout(out):
@@ -1247,6 +1262,7 @@ def n2v_phases(dev, collab_graph):
         phase("v_run_logistic", seed=seed, auc=res["auc"],
               fit_seconds=res["fit_seconds"], num_pos=res["num_pos"],
               num_neg=res["num_neg"], record=record[0], spans=spans)
+    return rates
 
 
 def scale_phases(dev, hk):
@@ -1579,9 +1595,9 @@ def seal_phases(dev, hk):
     del stack, params, opt, adj_d, mask_d, data
 
     # (seal_run) the family end to end at the reference defaults (50
-    # epochs, 117 steps an epoch, node2vec features), seeds 0 and 1, every
+    # epochs, 117 steps an epoch, node2vec features), SEAL_SEEDS, every
     # output under a temporary directory, no plot
-    for seed in (0, 1):
+    for seed in SEAL_SEEDS:
         out = io.StringIO()
         with tempfile.TemporaryDirectory() as tmp:
             with contextlib.redirect_stdout(out):
@@ -1878,6 +1894,22 @@ PAR_SPREAD_BOUND = 0.0
 PAR_LABEL = "4 ranks on one card, gloo; not a scaling number"
 # the feature widths of the GCN's two aggregations (emb_dim, hidden)
 PAR_WIDTHS = (64, 128)
+# the distributed node2vec (job C): the routed and the replicated walks'
+# conditional hop frequencies against `WalkEngine.walks` on the card (the
+# reference's bound between its two engines); the gathered SGNS table
+# against the one-process replay of its sample stream (the reference's
+# tolerance: the all-reduced scores sum in another order); the one-rank
+# NCCL run against the one-shard replay (the same sums)
+PAR_FREQ_ATOL = 0.12
+PAR_SGNS_TOL = dict(atol=2e-4, rtol=1e-3)
+PAR_NCCL_SGNS_TOL = 1e-6
+PAR_N2V_SEED = 36  # the logistic family's SGNS seed at its seed 35
+# the routed walk on the collab graph: per-destination capacity at twice
+# the reference's default (4x the mean load of a pair of ranks, + 16). The
+# power-law graph puts 62.5 % of its directed edges in the first node block
+# (the hubs), and walkers crowd it beyond the default; the run at the
+# default is reported beside this one (its loss), not gated
+PAR_COLLAB_CAP_FACTOR = 2
 
 
 def _par_x(rows, f, dtype, seed):
@@ -2236,7 +2268,33 @@ def par_job_b(rank, world, cfgs, builts, params_np):
     return runs
 
 
-def par_nccl_rank(port, cfgs, builts, out_path):
+def _one_rank_n2v(n2v, dev):
+    """`train_sgns_mesh` over a one-rank ("data",) mesh against the
+    one-shard replay, and the routed walk over a one-rank ("edge",) mesh,
+    in a world of one rank (`n2v`: the graph, its one-shard layout, a
+    corpus and an SGNS config)."""
+    from linkpred_tpu_torch.parallel import make_mesh
+    from linkpred_tpu_torch.parallel.sgns import (train_sgns_mesh,
+                                                  train_sgns_mesh_reference)
+
+    g, layout, corpus, cfg = n2v
+    out = {}
+    t0 = time.perf_counter()
+    emb = train_sgns_mesh(PAR_N2V_SEED, corpus, g.num_nodes, cfg,
+                          mesh=make_mesh(1, shape=(1,), axis_names=("data",),
+                                         device_type=dev.type))
+    out["sgns_seconds"] = time.perf_counter() - t0
+    ref = train_sgns_mesh_reference(PAR_N2V_SEED, corpus, g.num_nodes, cfg,
+                                    n_shards=1, device=dev)
+    out["sgns_max_abs_diff"] = float(np.abs(emb - ref).max())
+    walks, out["walks_lost"] = layout.walks(
+        make_mesh(1, shape=(1,), axis_names=("edge",), device_type=dev.type),
+        PAR_N2V_SEED, 10, 16)
+    out["walks_valid"] = _valid_on_card(walks, g, dev)
+    return out
+
+
+def par_nccl_rank(port, cfgs, builts, n2v, out_path):
     """par_nccl's second process: rank 0 of a one-rank NCCL job joined as
     `torchrun` would start it (`parallel.distributed.initialize` from the
     environment), so that every collective of `train_sharded` runs on NCCL
@@ -2244,7 +2302,10 @@ def par_nccl_rank(port, cfgs, builts, out_path):
     node-sharded and halo) broadcast from rank 0 by `broadcast_object_list`
     as `train_sharded` sends its own (they come from the parent, which
     holds the problem: a build here would cost ~25 s); then `train_sharded`
-    over a (1, 1) mesh on each (the halo run's all-to-all)."""
+    over a (1, 1) mesh on each (the halo run's all-to-all); then
+    `train_sgns_mesh` over a one-rank ("data",) mesh against the one-shard
+    replay, and the routed walk over a one-rank ("edge",) mesh (`n2v`: the
+    fb graph, its one-shard layout, a corpus and an SGNS config)."""
     os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
                       LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
@@ -2266,21 +2327,24 @@ def par_nccl_rank(port, cfgs, builts, out_path):
     dist.broadcast_object_list(box, src=0)
     out["runs"] = [_train_counted(gs, hk, cfg, mesh, dev, built)[::3]
                    for cfg, built in zip(cfgs, box[0])]
+    out.update(_one_rank_n2v(n2v, dev))
     distributed.finish()
     with open(out_path, "w") as f:
         json.dump(out, f)
 
 
-def parallel_phases(dev, hk, problem=None):
+def parallel_phases(dev, hk, problem=None, walk_rates=None):
     """The parallel group: the multi-GPU stack (`linkpred_tpu_torch.
     parallel`) as four gloo ranks that share the one card (NCCL refuses two
     ranks on one card; gloo moves CUDA tensors through the host). Job A:
     par_probe, par_ops, par_twowl, par_seal, par_dryrun; the parent then
     times K3 (at both widths), K2 and K1 on rank 0's operands (four
     processes on one card make any in-rank timing meaningless); job B:
-    par_collab; then par_nccl: the torchrun command at world size 1 on
-    NCCL, and `train_sharded` over a one-rank NCCL mesh. Returns the kernel
-    rows' numbers."""
+    par_collab; job C: dn_walks and dn_sgns, the distributed node2vec; then
+    par_nccl: the torchrun command at world size 1 on NCCL, and
+    `train_sharded`, `train_sgns_mesh` and the routed walk over a one-rank
+    NCCL mesh. `walk_rates`: phase (t)'s one-card hops/s, printed beside
+    dn_walks'. Returns the kernel rows' numbers."""
     from linkpred_tpu_torch.models import twowl as m
     from linkpred_tpu_torch.ops import spmm
     from linkpred_tpu_torch.parallel import multihost
@@ -2391,7 +2455,9 @@ def parallel_phases(dev, hk, problem=None):
     phase("par_dryrun", printed=first["dryrun"],
           seconds_per_rank=[r["seconds"]["dryrun"] for r in job_a],
           job_seconds=job_a_seconds)
-    assert first["dryrun"][-1].startswith("dryrun_multichip OK")
+    assert first["dryrun"][-1] == "dryrun_multichip OK", first["dryrun"]
+    assert first["dryrun"][-2].startswith("distributed sgns step"), \
+        first["dryrun"]
 
     # the timings, in this process, on rank 0's operands
     saved = torch.load(os.path.join(save_dir, "rank0_operands.pt"))
@@ -2440,6 +2506,7 @@ def parallel_phases(dev, hk, problem=None):
            "k1_err": max(t["k1_err"] for t in tw)}
     out["collab"] = _par_collab(dev, cfg, cfg_halo, problem, built_ns,
                                 built_halo)
+    _par_n2v(dev, problem, walk_rates or {})
     _par_nccl(cfg, cfg_halo, problem)
     phase("par_group", seconds=time.perf_counter() - t_group)
     return out
@@ -2502,6 +2569,284 @@ def _par_collab(dev, cfg, cfg_halo, problem, built_ns, built_halo):
     return collab
 
 
+def par_job_c(rank, world, inputs):
+    """Job C of the parallel group, on every rank: the distributed node2vec.
+    dn_walks: the routed walk of each layout in `inputs["routed"]` (rank k
+    loads only its shard k from the file the parent wrote) and
+    `sharded_walks` on fb-pages-food; dn_sgns: `train_sgns_mesh` at the
+    logistic family's config on the fb corpus, then at phase (u)'s shape.
+    Each timed on the host clock after an untimed warm-up. Rank 0 returns
+    the walk matrices and tables; every rank a digest of each."""
+    import hashlib
+    import pickle
+
+    from linkpred_tpu_torch.models.word2vec import SGNSConfig
+    from linkpred_tpu_torch.ops.walk import WalkEngine
+    from linkpred_tpu_torch.parallel import make_mesh
+    from linkpred_tpu_torch.parallel.sgns import train_sgns_mesh
+    from linkpred_tpu_torch.parallel.walks import sharded_walks
+    from linkpred_tpu_torch.pipelines.logistic_pipeline import LogisticConfig
+
+    dev = _rank_device()
+    edge = make_mesh(world, shape=(world,), axis_names=("edge",),
+                     device_type=dev.type)
+    data = make_mesh(world, shape=(world,), axis_names=("data",),
+                     device_type=dev.type)
+    out, seconds, digest, lost, walks = {}, {}, {}, {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        seconds[name] = time.perf_counter() - t0
+        arr = res[0] if isinstance(res, tuple) else res
+        digest[name] = hashlib.sha1(arr.tobytes()).hexdigest()
+        if rank == 0:
+            out[name] = arr
+        return res
+
+    fb = inputs["fb"]
+    eng = WalkEngine(fb, device=dev)
+    sharded_walks(data, eng, 0, 1, 4)  # warm-up: kernels and both groups
+    loaded = None
+    for name, path, num_walks, length, cap in inputs["routed"]:
+        if path != loaded:  # a layout's runs follow each other
+            with open(path.format(rank), "rb") as f:
+                shard = pickle.load(f)
+            shard.walks(edge, 0, 1, 2)  # warm-up at this layout
+            loaded = path
+        walks[name], lost[name] = timed(name, lambda: shard.walks(
+            edge, PAR_N2V_SEED, num_walks, length, capacity_per_dest=cap))
+    del shard
+    timed("fb sharded_walks", lambda: sharded_walks(
+        data, eng, PAR_N2V_SEED, 50, 16).cpu().numpy())
+    # dn_sgns on the routed fb corpus, which every rank holds whole (the
+    # digests show it is one matrix)
+    corpus = walks["fb p=q=1"]
+    timed("sgns fb", lambda: train_sgns_mesh(
+        PAR_N2V_SEED, corpus, fb.num_nodes, LogisticConfig().embed,
+        mesh=data))
+    big = np.random.default_rng(5).integers(
+        0, inputs["collab_nodes"], (65_536, 16), dtype=np.int32)
+    timed("sgns collab", lambda: train_sgns_mesh(
+        PAR_N2V_SEED, big, inputs["collab_nodes"],
+        SGNSConfig(dim=128, epochs=1, batch_size=65_536), mesh=data))
+    return {"out": out, "seconds": seconds, "digest": digest, "lost": lost}
+
+
+def _cond_freq(walks, n):
+    """Row-normalised counts of the moves a -> b (a != b) of `walks`."""
+    a, b = walks[:, :-1].reshape(-1), walks[:, 1:].reshape(-1)
+    moved = a != b
+    c = np.zeros((n, n))
+    np.add.at(c, (a[moved], b[moved]), 1)
+    return c / np.maximum(c.sum(axis=1, keepdims=True), 1)
+
+
+def _valid_on_card(walks, g, dev, starts=None):
+    """`walks_are_valid` against `g`'s ELL rows, on the card; row r starts
+    at node r % N unless `starts` says otherwise."""
+    import types
+
+    eng = types.SimpleNamespace(nbr=torch.as_tensor(g.nbr, device=dev),
+                                degree=torch.as_tensor(g.degree, device=dev))
+    if starts is None:
+        starts = np.arange(len(walks)) % g.num_nodes
+    return walks_are_valid(torch.as_tensor(walks, device=dev),
+                           torch.as_tensor(starts, device=dev), eng)
+
+
+def _logistic_auc(emb, dev, seed=35):
+    """The logistic family's test AUC from embeddings `emb` [620, dim]:
+    `run_logistic`'s pairs, features, split and fit at `seed`, composed
+    from the port's functions."""
+    from linkpred_tpu_torch.data import io as dio
+    from linkpred_tpu_torch.data import split as sp
+    from linkpred_tpu_torch.models.logistic import fit_logistic, predict_proba
+    from linkpred_tpu_torch.ops.sddmm import edge_sum
+    from linkpred_tpu_torch.utils import metrics
+
+    g, edges = dio.load_fb_pages_food()
+    neg = sp.reference_scan_negatives(edges, g.num_nodes)
+    pos = edges[sp.removable_positive_edges(edges, g.num_nodes)]
+    pairs = torch.as_tensor(np.concatenate([pos, neg]), dtype=torch.long,
+                            device=dev)
+    y = np.concatenate([np.ones(len(pos)), np.zeros(len(neg))])
+    x = edge_sum(pairs[:, 0], pairs[:, 1], torch.as_tensor(emb, device=dev))
+    trn, tst = sp.train_test_split_arrays(len(y), 0.3,
+                                          np.random.default_rng(seed))
+    beta = fit_logistic(x[torch.as_tensor(trn, device=dev)],
+                        torch.as_tensor(y[trn], dtype=torch.float32,
+                                        device=dev),
+                        class_weight="balanced", device=dev)
+    scores = predict_proba(beta, x[torch.as_tensor(tst, device=dev)])
+    return float(metrics.roc_auc_score(y[tst], scores.cpu().numpy()))
+
+
+def _fb_residual():
+    """fb-pages-food less its removable edges: the logistic family's walk
+    graph."""
+    from linkpred_tpu_torch.data import io as dio
+    from linkpred_tpu_torch.data import split as sp
+    from linkpred_tpu_torch.data.graph import Graph
+
+    g, edges = dio.load_fb_pages_food()
+    keep = np.setdiff1d(np.arange(len(edges)), sp.removable_positive_edges(
+        edges, g.num_nodes))
+    return Graph.from_undirected_edges(edges[keep, 0], edges[keep, 1],
+                                       num_nodes=g.num_nodes)
+
+
+def _par_n2v(dev, problem, walk_rates):
+    """dn_walks and dn_sgns: the distributed node2vec over the four ranks
+    (job C), held in this process to `WalkEngine.walks` on the card (hop
+    frequencies) and to `train_sgns_mesh_reference` (the table), with the
+    logistic family's AUC from the mesh embeddings."""
+    import pickle
+
+    from linkpred_tpu_torch.models.word2vec import SGNSConfig
+    from linkpred_tpu_torch.ops.walk import WalkEngine
+    from linkpred_tpu_torch.parallel import multihost
+    from linkpred_tpu_torch.parallel.sgns import (_cap_batch,
+                                                  _shard_geometry,
+                                                  train_sgns_mesh_reference)
+    from linkpred_tpu_torch.parallel.walks import TableShardedWalker
+    from linkpred_tpu_torch.pipelines.logistic_pipeline import LogisticConfig
+
+    t_all = time.perf_counter()
+    fb = _fb_residual()
+    collab = dataclasses.replace(problem[0], nbr_weight=None)
+    workdir = tempfile.mkdtemp(prefix="par_n2v_")
+    default_cap = 4 * (-(-collab.num_nodes // PAR_RANKS) // PAR_RANKS) + 16
+    runs = (("fb p=q=1", fb, (1.0, 1.0), 50, None),
+            ("fb p=2 q=0.5", fb, (2.0, 0.5), 50, None),
+            ("collab", collab, (1.0, 1.0), 1,
+             PAR_COLLAB_CAP_FACTOR * default_cap))
+    routed, layouts = [], {}
+    for name, g, pq, num_walks, cap in runs:
+        t0 = time.perf_counter()
+        lay = TableShardedWalker.build(g, PAR_RANKS, *pq)
+        build_s = time.perf_counter() - t0
+        path = os.path.join(workdir, name.replace(" ", "_") + ".{}.pkl")
+        for k in range(PAR_RANKS):
+            with open(path.format(k), "wb") as f:
+                pickle.dump(lay.shard(k), f, protocol=pickle.HIGHEST_PROTOCOL)
+        layouts[name] = {"build_seconds": build_s,
+                         "write_seconds": time.perf_counter() - t0 - build_s,
+                         "rows_per_shard": lay.rows,
+                         "edge_rows_per_shard": int(lay.rev_next.shape[1]),
+                         "shard_mb": os.path.getsize(path.format(0)) / 2**20}
+        routed.append((name, path, num_walks, 16, cap))
+        del lay
+    # the collab walk once more at the reference's default capacity
+    routed.append(("collab default capacity", path, 1, 16, None))
+    t0 = time.perf_counter()
+    job_c = multihost.launch(
+        par_job_c, PAR_RANKS, workdir,
+        args=({"fb": fb, "routed": routed,
+               "collab_nodes": collab.num_nodes},), timeout_s=900, threads=1)
+    job_seconds = time.perf_counter() - t0
+    shutil.rmtree(workdir, ignore_errors=True)
+    first = job_c[0]
+    for r in job_c[1:]:  # the ranks hold one result
+        assert r["digest"] == first["digest"], (r["digest"], first["digest"])
+    secs = {k: max(r["seconds"][k] for r in job_c) for k in first["seconds"]}
+
+    # dn_walks
+    gen = torch.Generator(device=dev).manual_seed(PAR_N2V_SEED)
+    freq_diff = {}
+    for name, g, pq, num_walks, cap in runs:
+        walks = first["out"][name]
+        assert walks.shape == (num_walks * g.num_nodes, 16), walks.shape
+        assert all(r["lost"][name] == 0 for r in job_c), name
+        assert _valid_on_card(walks, g, dev), name
+        if name.startswith("fb"):
+            eng = WalkEngine(g, *pq, device=dev)
+            ref = eng.walks(gen, num_walks, 16).cpu().numpy()
+            freq_diff[name] = float(np.abs(
+                _cond_freq(walks, g.num_nodes)
+                - _cond_freq(ref, g.num_nodes)).max())
+            assert freq_diff[name] < PAR_FREQ_ATOL, (name, freq_diff[name])
+        hops = num_walks * g.num_nodes * 15
+        phase("dn_walks", label=PAR_LABEL, graph=name, p=pq[0], q=pq[1],
+              nodes=g.num_nodes, walkers=num_walks * g.num_nodes, length=16,
+              lost=[r["lost"][name] for r in job_c],
+              max_cond_freq_diff=freq_diff.get(name), tol=PAR_FREQ_ATOL,
+              seconds=secs[name], hops_per_s=hops / secs[name],
+              one_card_hops_per_s_phase_t=walk_rates.get(
+                  "collab" if name == "collab" else "fb",
+                  "not run (group n2v)") if pq == (1.0, 1.0) else None,
+              capacity_per_dest=cap or "default", layout=layouts[name])
+    walks = first["out"]["collab default capacity"]
+    back = ~(walks == 0).all(axis=1)  # node 0 has neighbours: a row of
+    assert collab.degree[0] > 0  # zeros is a lost walker
+    assert first["lost"]["collab default capacity"] == int((~back).sum())
+    assert _valid_on_card(walks[back], collab, dev, starts=np.flatnonzero(
+        back) % collab.num_nodes)
+    phase("dn_walks", label=PAR_LABEL, graph="collab",
+          capacity_per_dest=default_cap, gated=False,
+          lost=first["lost"]["collab default capacity"],
+          lost_share=first["lost"]["collab default capacity"]
+          / collab.num_nodes, seconds=secs["collab default capacity"])
+    walks = first["out"]["fb sharded_walks"]
+    assert walks.shape == (50 * fb.num_nodes, 16)
+    assert _valid_on_card(walks, fb, dev)
+    eng = WalkEngine(fb, device=dev)
+    ref = eng.walks(gen, 50, 16).cpu().numpy()
+    fd = float(np.abs(_cond_freq(walks, fb.num_nodes)
+                      - _cond_freq(ref, fb.num_nodes)).max())
+    assert fd < PAR_FREQ_ATOL, fd
+    eng.walks(gen, 50, 16)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    eng.walks(gen, 50, 16)
+    torch.cuda.synchronize(dev)
+    one_card = time.perf_counter() - t0
+    phase("dn_walks", label=PAR_LABEL, graph="fb p=q=1 sharded_walks",
+          walkers=len(walks), max_cond_freq_diff=fd, tol=PAR_FREQ_ATOL,
+          seconds=secs["fb sharded_walks"],
+          hops_per_s=len(walks) * 15 / secs["fb sharded_walks"],
+          one_card_seconds=one_card,
+          one_card_hops_per_s=len(walks) * 15 / one_card)
+
+    # dn_sgns
+    big = np.random.default_rng(5).integers(0, collab.num_nodes,
+                                            (65_536, 16), dtype=np.int32)
+    for name, corpus, n, cfg in (
+            ("sgns fb", first["out"]["fb p=q=1"], fb.num_nodes,
+             LogisticConfig().embed),
+            ("sgns collab", big, collab.num_nodes,
+             SGNSConfig(dim=128, epochs=1, batch_size=65_536))):
+        t0 = time.perf_counter()
+        ref = train_sgns_mesh_reference(PAR_N2V_SEED, corpus, n, cfg,
+                                        n_shards=PAR_RANKS, device=dev)
+        replay = time.perf_counter() - t0
+        got = first["out"][name]
+        assert got.shape == (n, cfg.dim) and np.isfinite(got).all()
+        err = float(np.abs(got - ref).max())
+        np.testing.assert_allclose(got, ref, **PAR_SGNS_TOL)
+        capped = _cap_batch(cfg, n)
+        nc, bc = _shard_geometry(capped, PAR_RANKS)
+        steps = max(int(cfg.epochs * corpus.size * cfg.window * 2
+                        / (bc * nc)), 1)
+        extra = {}
+        if name == "sgns fb":
+            extra["test_auc_seed35"] = _logistic_auc(got, dev)
+            assert extra["test_auc_seed35"] >= LOGISTIC_AUC_FLOOR, extra
+        phase("dn_sgns", label=PAR_LABEL, corpus=list(corpus.shape),
+              table=[n, cfg.dim], steps=steps, centers_per_step=bc,
+              ctx_per_center=nc, pool=cfg.neg_pool,
+              max_abs_diff_vs_replay=err, tol=PAR_SGNS_TOL,
+              seconds=secs[name], steps_per_s=steps / secs[name],
+              replay_seconds_one_process=replay,
+              score_all_reduce_bytes_per_step=bc * (nc + cfg.neg_pool) * 4,
+              index_gather_bytes_per_step=bc * (1 + 2 * nc) * 4,
+              auc_floor=LOGISTIC_AUC_FLOOR if extra else None, **extra)
+    phase("dn_job", seconds=job_seconds,
+          seconds_all=time.perf_counter() - t_all)
+
+
 def _par_nccl(cfg, cfg_halo, problem):
     """par_nccl: the command a multi-card user runs, here at world size 1
     (one rank takes the one-card path), then `train_sharded` over a
@@ -2510,6 +2855,8 @@ def _par_nccl(cfg, cfg_halo, problem):
     import multiprocessing
     import socket
 
+    from linkpred_tpu_torch.models.word2vec import SGNSConfig
+    from linkpred_tpu_torch.parallel.walks import TableShardedWalker
     from linkpred_tpu_torch.pipelines import gcn_scale as gs
 
     t0 = time.perf_counter()
@@ -2530,12 +2877,17 @@ def _par_nccl(cfg, cfg_halo, problem):
     cfgs = [dataclasses.replace(gs.ScaleGCNConfig(), steps=8)]
     cfgs.append(dataclasses.replace(cfgs[0], aggregation="halo"))
     builts = [gs.build_sharded(c, 1, problem) for c in cfgs]
+    fb = _fb_residual()
+    n2v = (fb, TableShardedWalker.build(fb, 1),
+           np.random.default_rng(6).integers(0, fb.num_nodes, (6_200, 16),
+                                             dtype=np.int32),
+           SGNSConfig(dim=100, epochs=1))
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     out_path = os.path.join(tempfile.mkdtemp(prefix="par_nccl_"), "out.json")
     child = multiprocessing.get_context("spawn").Process(
-        target=par_nccl_rank, args=(port, cfgs, builts, out_path))
+        target=par_nccl_rank, args=(port, cfgs, builts, n2v, out_path))
     child.start()
     child.join(300)
     if child.exitcode is None:
@@ -2554,13 +2906,18 @@ def _par_nccl(cfg, cfg_halo, problem):
     assert np.isfinite([halo["loss_first_quarter"], halo["test_auc"]]).all()
     assert min(ns_counts["spmm_bucketed"], halo_counts["spmm_bucketed"],
                ns_counts["sddmm"], halo_counts["sddmm"]) > 0
+    assert got["sgns_max_abs_diff"] <= PAR_NCCL_SGNS_TOL, got
+    assert got["walks_lost"] == 0 and got["walks_valid"], got
     phase("par_nccl_mesh", world_size=1, backend=got["backend"],
           mesh_backends=got["mesh_backends"], collectives=got["probe"],
           seconds=time.perf_counter() - t0,
           node_sharded=dict(ns, launches=ns_counts),
           one_card_loss_quarters=[res["loss_first_quarter"],
                                   res["loss_last_quarter"]],
-          loss_tol=PAR_LOSS_ATOL, halo=dict(halo, launches=halo_counts))
+          loss_tol=PAR_LOSS_ATOL, halo=dict(halo, launches=halo_counts),
+          sgns_max_abs_diff_vs_one_shard_replay=got["sgns_max_abs_diff"],
+          sgns_tol=PAR_NCCL_SGNS_TOL, sgns_seconds=got["sgns_seconds"],
+          routed_walks_lost=got["walks_lost"])
 
 
 def slice_phases(dev, hk, data, run, trn, rates):
@@ -2802,6 +3159,7 @@ def main():
     gcn = gcn_phases(dev, hk) if "gcn" in only else None
     sweep = sweep_phases(dev, hk, data, run, trn, rates) \
         if "sweep" in only else None
+    walk_rates = {}
     if "n2v" in only:
         if gcn is None:
             from linkpred_tpu_torch.pipelines import gcn_scale as gs
@@ -2809,14 +3167,14 @@ def main():
             collab = gs.build_problem(gs.ScaleGCNConfig())[0]
         else:
             collab = gcn.pop("graph")
-        n2v_phases(dev, collab)
+        walk_rates = n2v_phases(dev, collab)
         del collab
     scale = scale_phases(dev, hk) if "scale" in only else None
     if "seal" in only:
         seal_phases(dev, hk)
     if "surface" in only:
         surface_phases(dev, hk)
-    par = parallel_phases(dev, hk, gcn and gcn.pop("problem")) \
+    par = parallel_phases(dev, hk, gcn and gcn.pop("problem"), walk_rates) \
         if "parallel" in only else None
     if set(only) != set(GROUPS):
         print(json.dumps({"partial": only}))

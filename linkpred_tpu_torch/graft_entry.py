@@ -72,10 +72,9 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     - the trial-major TwoWL sweep with the trial axis split over ``data``;
     - `train_collab` node-sharded over ``edge`` at a tiny config;
     - the pipelined node-sharded SpMM against the dense adjacency;
-    - the halo SpMM, forward and gradient, against the dense adjacency.
-
-    The reference's last stanza, distributed SGNS, waits for the port of
-    `parallel/sgns.py`."""
+    - the halo SpMM, forward and gradient, against the dense adjacency;
+    - distributed SGNS over a (n,) ("data",) mesh: the corpus split over
+      the ranks, both tables split on the feature dim."""
     import torch.distributed as dist
 
     from linkpred_tpu_torch.data.graph import Graph
@@ -251,4 +250,23 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     say(f"halo spmm fwd+grad ok (max |diff| {hd:.2e}): cut {lay.edge_cut} "
         f"edges, ghost capacity {lay.ghost_capacity} rows "
         f"({lay.collective_bytes_per_layer(8)} B/layer/rank)")
-    say("dryrun_multichip OK (distributed SGNS: not ported yet)")
+
+    # ---- distributed SGNS: corpus-sharded sampling + feature-sharded ----
+    # tables (parallel.sgns module docstring)
+    from linkpred_tpu_torch.models.word2vec import SGNSConfig
+    from linkpred_tpu_torch.parallel.sgns import train_sgns_mesh
+
+    smesh = make_mesh(n_devices, shape=(n_devices,), axis_names=("data",),
+                      device_type=device.type)
+    walks = rng2.integers(0, 40, (8 * n_devices, 10), dtype=np.int32)
+    emb = train_sgns_mesh(
+        6, walks, 40,
+        SGNSConfig(dim=8 * n_devices, window=4, epochs=1, batch_size=256,
+                   neg_pool=32),
+        mesh=smesh)
+    if emb.shape != (40, 8 * n_devices) or not np.isfinite(emb).all():
+        raise AssertionError(f"distributed sgns: shape {emb.shape}, finite "
+                             f"{bool(np.isfinite(emb).all())}")
+    say(f"distributed sgns step: tables feature-sharded {n_devices}-way, "
+        f"corpus {n_devices}-sharded")
+    say("dryrun_multichip OK")

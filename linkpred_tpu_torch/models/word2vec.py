@@ -14,8 +14,11 @@ batch are summed exactly (`index_add_`), so there is no hogwild.
 
 The step bodies (`sgns_step_pooled`, `sgns_step_classic`) are functions of
 the drawn indices, apart from the draws (`sample_pairs`, `draw_noise`), so
-they can be held against the gradient of the SGNS loss. The three products
-with the pool are matrix products (`torch.matmul`). The host-side table constructors
+they can be held against the gradient of the SGNS loss. The pooled step is
+two calls, `pooled_scores` and `pooled_update`, so that the distributed
+trainer (`parallel/sgns.py`) sums the scores over feature slices between
+them. The three products with the pool are matrix products
+(`torch.matmul`). The host-side table constructors
 (`_noise_alias`, `_keep_prob`, `prepare_sgns`) are array-equal to the JAX
 package's; the random streams are torch's.
 """
@@ -161,24 +164,37 @@ def draw_noise(generator: torch.Generator, noise_J: torch.Tensor,
 
 
 @torch.no_grad()
-def sgns_step_pooled(w_in: torch.Tensor, w_out: torch.Tensor,
-                     center: torch.Tensor, context: torch.Tensor,
-                     valid: torch.Tensor, pool: torch.Tensor, lr: float,
-                     cfg: SGNSConfig) -> None:
-    """One SGD step with a shared negative pool, in place on `w_in`,
-    `w_out` [N, D]: `center` [Bc], `context`/`valid` [Bc, nc], `pool` [P]
-    noise rows. Per pair the negative term depends only on the center, so a
-    center with v valid pairs takes v pooled-negative gradients, each worth
-    `negatives / P` of the pool sum. Rows named more than once get the sum
-    of their updates."""
+def pooled_scores(w_in: torch.Tensor, w_out: torch.Tensor,
+                  center: torch.Tensor, context: torch.Tensor,
+                  pool: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pooled step's scores: (pos_score [Bc, nc], neg_score [Bc, P]),
+    the dot products of each center row of `w_in` with its context rows
+    and with the pool's rows of `w_out`. Over a feature slice of the tables
+    they are partial sums, which add up over the slices."""
+    Bc, nc = context.shape
+    vc = w_in[center]  # [Bc, D]
+    uo = w_out[context.reshape(-1)].reshape(Bc, nc, -1)
+    return torch.einsum("bd,bnd->bn", vc, uo), vc @ w_out[pool].T
+
+
+@torch.no_grad()
+def pooled_update(w_in: torch.Tensor, w_out: torch.Tensor,
+                  center: torch.Tensor, context: torch.Tensor,
+                  valid: torch.Tensor, pool: torch.Tensor, lr: float,
+                  cfg: SGNSConfig, pos_score: torch.Tensor,
+                  neg_score: torch.Tensor) -> None:
+    """The pooled step's SGD update, in place on `w_in`, `w_out` [N, D]
+    (whole tables or one feature slice of each), given the full scores of
+    `pooled_scores` (summed over the slices). Per pair the negative term
+    depends only on the center, so a center with v valid pairs takes v
+    pooled-negative gradients, each worth `negatives / P` of the pool sum.
+    Rows named more than once get the sum of their updates."""
     Bc, nc = context.shape
     vc = w_in[center]  # [Bc, D]
     uo = w_out[context.reshape(-1)].reshape(Bc, nc, -1)
     U = w_out[pool]  # [P, D]
 
     validf = valid.to(vc.dtype)
-    pos_score = torch.einsum("bd,bnd->bn", vc, uo)
-    neg_score = vc @ U.T  # [Bc, P]
     g_pos = (torch.sigmoid(pos_score) - 1.0) * validf  # [Bc, nc]
     nvalid = validf.sum(dim=1) * (cfg.negatives / pool.shape[0])  # [Bc]
     g_neg = torch.sigmoid(neg_score) * nvalid[:, None]  # [Bc, P]
@@ -191,6 +207,19 @@ def sgns_step_pooled(w_in: torch.Tensor, w_out: torch.Tensor,
     w_out.index_add_(0, context.reshape(-1), grad_uo.reshape(Bc * nc, -1),
                      alpha=-lr)
     w_out.index_add_(0, pool, grad_pool, alpha=-lr)
+
+
+@torch.no_grad()
+def sgns_step_pooled(w_in: torch.Tensor, w_out: torch.Tensor,
+                     center: torch.Tensor, context: torch.Tensor,
+                     valid: torch.Tensor, pool: torch.Tensor, lr: float,
+                     cfg: SGNSConfig) -> None:
+    """One SGD step with a shared negative pool, in place on `w_in`,
+    `w_out` [N, D]: `center` [Bc], `context`/`valid` [Bc, nc], `pool` [P]
+    noise rows. `pooled_scores`, then `pooled_update`."""
+    pos_score, neg_score = pooled_scores(w_in, w_out, center, context, pool)
+    pooled_update(w_in, w_out, center, context, valid, pool, lr, cfg,
+                  pos_score, neg_score)
 
 
 @torch.no_grad()

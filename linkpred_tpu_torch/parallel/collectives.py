@@ -20,6 +20,9 @@ edge-sharded 2-WL aggregation of the TwoWL step runs between. `gather_rows`
 makes row-sharded blocks replicated (forward: all-gather; backward: the
 rank's own block of the cotangent).
 
+`all_gather_blocks` and `all_to_all_blocks` move blocks with no gradient
+(the distributed node2vec's int32 indices and walker frontier).
+
 `probe` tries each collective the port uses on a group and tensors of a
 device and says which it takes: gloo moves CUDA tensors through the host,
 and not every build takes every collective that way.
@@ -38,10 +41,21 @@ all_gather_single = getattr(dist, "all_gather_single",
 
 def all_gather_blocks(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' equal-shaped `x` stacked along the leading axis, in group
-    rank order: [S * x.shape[0], ...]. No gradient."""
+    rank order: [S * x.shape[0], ...]. No gradient. Any dtype the backend
+    takes (`probe`): the distributed SGNS gathers its int32 index blocks
+    with it, as the reference's `all_gather(..., tiled=True)`."""
     out = x.new_empty((dist.get_world_size(group) * x.shape[0],) + tuple(x.shape[1:]))
     all_gather_single(out, x.contiguous(), group=group)
     return out
+
+
+def all_to_all_blocks(send: torch.Tensor, group) -> torch.Tensor:
+    """`send` [S, ...]: block j goes to group rank j; returns [S, ...] whose
+    block i came from group rank i (the reference's untiled `all_to_all`
+    with split and concat on axis 0). No gradient."""
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send.contiguous(), group=group)
+    return recv
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -236,6 +250,28 @@ def probe(group, device) -> dict:
         attempt(f"all_to_all_single async {tag}",
                 lambda: all_to_all_single(True))
         attempt(f"reduce_scatter_tensor {tag}", reduce_scatter_tensor)
+
+    # the index dtypes of the distributed node2vec: its gathered index
+    # blocks and its routed walker frontier
+    ids = torch.arange(4 * s, device=device, dtype=torch.int32).reshape(s, 4)
+
+    def gather_index(dtype):
+        mine = ((ids[r] + r) % 2).to(dtype) if dtype == torch.bool \
+            else ids[r] * 3
+        got = all_gather_blocks(mine[:, None].repeat(1, 3), group)
+        want = ((ids + torch.arange(s, device=device)[:, None]) % 2).to(
+            dtype) if dtype == torch.bool else ids * 3
+        return bool((got[:, 0] == want.reshape(-1)).all())
+
+    def all_to_all_index():
+        send = ids + 1000 * r  # block j to rank j
+        got = all_to_all_blocks(send.reshape(s, 4, 1).repeat(1, 1, 3), group)
+        want = ids[r][None, :] + 1000 * torch.arange(s, device=device)[:, None]
+        return bool((got[..., 0] == want).all())
+
+    attempt("all_gather_into_tensor int32", lambda: gather_index(torch.int32))
+    attempt("all_gather_into_tensor bool", lambda: gather_index(torch.bool))
+    attempt("all_to_all_single int32", all_to_all_index)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return out

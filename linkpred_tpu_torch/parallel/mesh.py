@@ -11,7 +11,9 @@ Dims:
 The reference's `NamedSharding(mesh, P("data"))` / `P()` become the
 placement helpers `data_sharding` (this rank's slice of the leading axis
 along a named dim) and `replicated` (the whole value): every rank holds
-host-replicated numpy data and keeps its own part.
+host-replicated numpy data and keeps its own part. Its `fold_in` of a
+random key with a shard id becomes `stream`: a generator per (seed, name,
+shard).
 """
 
 from __future__ import annotations
@@ -88,3 +90,34 @@ def data_sharding(mesh: DeviceMesh, x, dim="data"):
 def replicated(mesh: DeviceMesh, x):
     """`x` whole on every rank: the reference's `P()`."""
     return x
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device for a mesh: its current card for a "cuda" mesh
+    (`cuda_device()`, which raises without one), else the CPU."""
+    if mesh.device_type == "cuda":
+        from linkpred_tpu_torch.utils.device import cuda_device
+
+        return cuda_device()
+    return torch.device(mesh.device_type)
+
+
+def stream(seed: int, ids: Sequence[int], device) -> torch.Generator:
+    """A `torch.Generator` on `device` seeded from `seed` and `ids` (a
+    stream's name and, say, a shard id) through numpy's `SeedSequence`, so
+    that distinct `ids` give independent streams: the reference's
+    `fold_in` of a key."""
+    state = np.random.SeedSequence([int(seed), *map(int, ids)])
+    return torch.Generator(device=device).manual_seed(
+        int(state.generate_state(1, np.uint64)[0]))
+
+
+def seed_of(seed_or_generator) -> int:
+    """An int seed: `seed_or_generator` itself, or one draw from a
+    `torch.Generator` (every rank passes one in the same state, so every
+    rank reads the same seed)."""
+    if isinstance(seed_or_generator, torch.Generator):
+        g = seed_or_generator
+        return int(torch.randint(0, 2**62, (1,), generator=g,
+                                 device=g.device))
+    return int(seed_or_generator)

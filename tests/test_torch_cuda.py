@@ -892,3 +892,37 @@ def test_two_gloo_ranks_on_the_card(cuda, tmp_path):
         for k, v in err.items():
             assert v <= 1e-5, (k, v)
         assert launches["spmm_bucketed"] > 0 and launches["spmm_ell"] > 0
+
+
+def test_distributed_node2vec_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on `cuda:0`: `train_sgns_mesh` (the int32 index
+    gather and the f32 score all-reduce on CUDA tensors) against the
+    one-process replay on the card (atol 2e-4, rtol 1e-3, the JAX test's
+    tolerance), and both walk regimes: no walker lost, row r * N + v starts
+    at v, every hop an edge."""
+    import torch_ranks
+    from linkpred_tpu_torch.data.graph import Graph
+    from linkpred_tpu_torch.models.word2vec import SGNSConfig
+    from linkpred_tpu_torch.parallel import multihost
+    from linkpred_tpu_torch.parallel.sgns import train_sgns_mesh_reference
+
+    rng = np.random.default_rng(0)
+    n = 60
+    lo, hi = rng.integers(0, n, 240), rng.integers(0, n, 240)
+    g = Graph.from_undirected_edges(lo[lo != hi], hi[lo != hi], num_nodes=n)
+    walks = rng.integers(0, n, (64, 12), dtype=np.int32)
+    cfg = SGNSConfig(dim=32, window=4, epochs=10, batch_size=512,
+                     ctx_per_center=4, neg_pool=64)
+    out = multihost.launch(torch_ranks.card_n2v_job, 2, str(tmp_path),
+                           args=(g, walks, cfg), timeout_s=600)
+    ref = train_sgns_mesh_reference(5, walks, n, cfg, n_shards=2,
+                                    device=cuda)
+    has = g.has_edge_matrix()
+    for emb, routed, lost, repl in out:
+        np.testing.assert_allclose(emb, ref, atol=2e-4, rtol=1e-3)
+        assert lost == 0
+        for w in (routed, repl):
+            assert w.shape == (20 * n, 8)
+            np.testing.assert_array_equal(w[:, 0], np.tile(np.arange(n), 20))
+            a, b = w[:, :-1].reshape(-1), w[:, 1:].reshape(-1)
+            assert bool((has[a, b] | ((a == b) & (g.degree[a] == 0))).all())

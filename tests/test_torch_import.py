@@ -6,6 +6,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -184,6 +185,68 @@ _PARALLEL_SCRIPT = textwrap.dedent("""
 """)
 
 
+# the distributed node2vec: a 2-rank gloo job of each module, SGNS and the
+# walks (the rank bodies of tests/torch_ranks.py)
+_N2V_SCRIPTS = {
+    "sgns": """
+        from linkpred_tpu_torch.models.word2vec import SGNSConfig
+        from linkpred_tpu_torch.parallel import sgns
+
+        def job(rank, world, walks):
+            cfg = SGNSConfig(dim=8, window=3, epochs=1, batch_size=128,
+                             neg_pool=16)
+            out = torch_ranks.sgns_mesh_job(rank, world,
+                                            {"t": (0, walks, 30, cfg)})
+            return out["t"].shape, out["jax_modules"]
+
+        def check(walks):
+            cfg = SGNSConfig(dim=8, window=3, epochs=1, batch_size=128,
+                             neg_pool=16)
+            ref = sgns.train_sgns_mesh_reference(0, walks, 30, cfg, 2,
+                                                 device="cpu")
+            return ref.shape, []
+    """,
+    "walks": """
+        from linkpred_tpu_torch.data.graph import Graph
+        from linkpred_tpu_torch.parallel.walks import TableShardedWalker
+
+        def graph():
+            rng = np.random.default_rng(0)
+            lo, hi = rng.integers(0, 30, 90), rng.integers(0, 30, 90)
+            return Graph.from_undirected_edges(lo[lo != hi], hi[lo != hi],
+                                               num_nodes=30)
+
+        def job(rank, world, walks):
+            layout = TableShardedWalker.build(graph(), world)
+            out = torch_ranks.walks_mesh_job(rank, world, {"t": (
+                "routed", (layout, (world,), ("edge",), 0, 2, 5, None))})
+            return out["t"][0].shape, out["jax_modules"]
+
+        def check(walks):
+            return (60, 5), []
+    """,
+}
+
+_N2V_PRELUDE = textwrap.dedent("""
+    import sys
+    import tempfile
+    import numpy as np
+    sys.path.insert(0, "tests")
+    import torch_ranks
+    from linkpred_tpu_torch.parallel import multihost
+""")
+
+_N2V_MAIN = textwrap.dedent("""
+    if __name__ == "__main__":
+        walks = np.random.default_rng(1).integers(0, 30, (16, 6),
+                                                  dtype=np.int32)
+        got = multihost.launch(job, 2, tempfile.mkdtemp(), args=(walks,))
+        assert got == [check(walks)] * 2, got
+        assert_port_stands_alone()
+        print("JAX-FREE OK")
+""")
+
+
 _SURFACE_SCRIPTS = {
     "config": """
         from linkpred_tpu_torch import config
@@ -295,6 +358,23 @@ def test_parallel_ranks_run_without_jax(tmp_path):
     assert "JAX-FREE OK" in proc.stdout
 
 
+@pytest.mark.parametrize("name", sorted(_N2V_SCRIPTS))
+def test_distributed_node2vec_runs_without_jax(name, tmp_path):
+    """`parallel.sgns` and `parallel.walks` over 2 gloo ranks, from a file
+    (as the parallel job above); the parent and each rank check their
+    modules."""
+    path = tmp_path / f"{name}_job.py"
+    path.write_text(_PRELUDE + _N2V_PRELUDE
+                    + textwrap.dedent(_N2V_SCRIPTS[name]) + _N2V_MAIN)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, str(path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX-FREE OK" in proc.stdout
+
+
 @pytest.mark.parametrize("name", sorted(_SURFACE_SCRIPTS))
 def test_surface_runs_without_jax(name):
     _run_without_jax(_SURFACE_PRELUDE
@@ -338,6 +418,25 @@ def test_no_card_raises(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
     assert list(tmp_path.iterdir()) == []
+
+
+def test_distributed_node2vec_defaults_to_the_card(monkeypatch):
+    """Without a card, the SGNS replay and a mesh of the default device type
+    refuse to run rather than fall back to the CPU."""
+    from linkpred_tpu_torch.models.word2vec import SGNSConfig
+    from linkpred_tpu_torch.parallel import mesh
+    from linkpred_tpu_torch.parallel.sgns import train_sgns_mesh_reference
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_sgns_mesh_reference(0, np.zeros((8, 4), np.int32), 10,
+                                  SGNSConfig(dim=8, neg_pool=8), 2)
+
+    class CudaMesh:
+        device_type = "cuda"
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.mesh_device(CudaMesh())
 
 
 @pytest.mark.parametrize("family,error,match", [

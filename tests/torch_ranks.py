@@ -182,10 +182,17 @@ def collab(rank, world, cfgs, builts, params_np, reference_draws):
 
 
 def dryrun(rank, world):
+    """`dryrun_multichip` on the CPU: the lines rank 0 printed (none on the
+    other ranks)."""
+    import contextlib
+    import io
+
     from linkpred_tpu_torch.graft_entry import dryrun_multichip
 
-    dryrun_multichip(world, device="cpu")
-    return True
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        dryrun_multichip(world, device="cpu")
+    return printed.getvalue().splitlines()
 
 
 def seal_must_divide(rank, world, batch):
@@ -367,6 +374,56 @@ def multihost_jobs(rank, world, data, steps, outdir):
 
 
 # ---------------------------------------------------------------------------
+# test_torch_sgns_mesh.py and test_torch_walks_mesh.py
+# ---------------------------------------------------------------------------
+
+
+def sgns_mesh_job(rank, world, cases):
+    """`train_sgns_mesh` for each case of `cases` ({name: (seed, walks,
+    num_nodes, cfg)}) over a (world,) ("data",) mesh: each case's table,
+    and the JAX modules the rank loaded."""
+    from linkpred_tpu_torch.parallel import make_mesh
+    from linkpred_tpu_torch.parallel.sgns import train_sgns_mesh
+
+    mesh = make_mesh(world, shape=(world,), axis_names=("data",),
+                     device_type="cpu")
+    out = {name: train_sgns_mesh(seed, walks, n, cfg, mesh=mesh)
+           for name, (seed, walks, n, cfg) in cases.items()}
+    out["jax_modules"] = jax_modules()
+    return out
+
+
+def walks_mesh_job(rank, world, cases):
+    """Each case of `cases` ({name: (kind, args)}) on a mesh of the world:
+    "routed" runs `TableShardedWalker.walks` (args: the layout, the mesh
+    shape and dim names, seed, walks, length, capacity per destination);
+    "sharded" runs `sharded_walks` (args: the graph, the mesh shape and dim
+    names, seed, walks, length). Each case's (walks, walkers lost), and the
+    JAX modules the rank loaded."""
+    from linkpred_tpu_torch.ops.walk import WalkEngine
+    from linkpred_tpu_torch.parallel import make_mesh
+    from linkpred_tpu_torch.parallel.walks import sharded_walks
+
+    out = {}
+    for name, (kind, args) in cases.items():
+        if kind == "routed":
+            layout, shape, names, seed, num_walks, length, cap = args
+            mesh = make_mesh(world, shape=shape, axis_names=names,
+                             device_type="cpu")
+            out[name] = layout.walks(mesh, torch.Generator().manual_seed(seed),
+                                     num_walks, length,
+                                     capacity_per_dest=cap)
+        else:
+            g, shape, names, seed, num_walks, length = args
+            mesh = make_mesh(world, shape=shape, axis_names=names,
+                             device_type="cpu")
+            out[name] = (sharded_walks(mesh, WalkEngine(g, device="cpu"), seed,
+                                       num_walks, length).numpy(), 0)
+    out["jax_modules"] = jax_modules()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # test_torch_cuda.py: gloo ranks that share the one card
 # ---------------------------------------------------------------------------
 
@@ -451,6 +508,29 @@ def card_job(rank, world, g, x, t, twowl_args):
         losses["sharded"][0], losses["whole"][0]))
     err["twowl_loss"] = abs(losses["sharded"][1] - losses["whole"][1])
     return err, {kk: v - before[kk] for kk, v in hk.LAUNCHES.items()}
+
+
+def card_n2v_job(rank, world, g, walks, cfg):
+    """On `cuda:0`, over a (world,) gloo mesh: `train_sgns_mesh` on
+    `walks`, the routed walk of `g` (p = 2, q = 0.5) and `sharded_walks`;
+    the table, both walk matrices and the walkers lost."""
+    from linkpred_tpu_torch.ops.walk import WalkEngine
+    from linkpred_tpu_torch.parallel import make_mesh
+    from linkpred_tpu_torch.parallel.sgns import train_sgns_mesh
+    from linkpred_tpu_torch.parallel.walks import (TableShardedWalker,
+                                                   sharded_walks)
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(world, shape=(world,), axis_names=("data",),
+                     device_type="cuda")
+    emb = train_sgns_mesh(5, walks, g.num_nodes, cfg, mesh=mesh)
+    routed, lost = TableShardedWalker.build(g, world, p=2.0, q=0.5).walks(
+        make_mesh(world, shape=(world,), axis_names=("edge",),
+                  device_type="cuda"), 1, 20, 8)
+    repl = sharded_walks(mesh, WalkEngine(g, device=dev), 2, 20, 8)
+    assert repl.device == dev
+    return emb, routed, lost, repl.cpu().numpy()
 
 
 def _relabelled(g, order):
