@@ -492,7 +492,9 @@ def report(times, work, hk, dev, library=None, reason=None, **launch_rate):
     the bound of `work` and the share of it reached, the floor (an empty
     `<<<1, 32>>>` launch timed the same way; a bound below it cannot be
     reached), the library call's time in two turns or why there is none,
-    and the kernel's launches per epoch or step on its path."""
+    and the kernel's launches per epoch or step on its path. Where there is
+    a library call, `kernel_ms < library_ms` says whether the kernel beat
+    it."""
     out = {**times, **bound(work), **launch_rate}
     before = ESTIMATED_READINGS[0]
     out["floor_ms"] = kernel_ms(lambda: hk.empty_launch(dev))
@@ -502,6 +504,7 @@ def report(times, work, hk, dev, library=None, reason=None, **launch_rate):
     else:
         turns = [kernel_ms(library) for _ in range(2)]
         out["library_ms"], out["library_ms_turns"] = sum(turns) / 2, turns
+        out["kernel_ms < library_ms"] = out["ms"] < out["library_ms"]
     out["estimated_readings"] += ESTIMATED_READINGS[0] - before
     return out
 
@@ -873,19 +876,24 @@ def sweep_phases(dev, hk, data, run, trn, rates):
     err = check("gather_sum_composed grad", grads[0], grads[1], F32_TOL)
     k3_err = max(k3_err, err)
     phase("m_k3_grad", x=list(x.shape), max_abs_err=err)
-    # timed at the single-trial width (slice 1's 2-WL) and at T = 32
+    # timed at the single-trial width (slice 1's 2-WL), at T = 32 and at
+    # F = 1, the degree pass of both paths (the slot kernel)
     fwd = trn.e1_cops[0]
-    for f, path in ((32, "slice"), (32 * T, "sweep")):
+    k3_times = {}
+    for f, paths in ((32, ("slice",)), (32 * T, ("sweep",)),
+                     (1, ("slice", "sweep"))):
         x = feats(R, f)
         library, reason = library_spmm(
             lambda: bucketed_csr(*fwd.k3[:4], R), x,
             hk.spmm_bucketed(x, *fwd.k3))
-        k3_time = report(
+        k3_times[f] = report(
             time_in_turns(lambda: hk.spmm_bucketed_reference(x, *fwd.k3),
                           lambda: hk.spmm_bucketed(x, *fwd.k3)),
             spmm_bucketed_work(x, *fwd.k3), hk, dev, library, reason,
-            launches_per_epoch=rates[path].get(f"spmm_bucketed F={f}", 0))
-        phase("m_k3_time", case=f"train fwd F={f}", **k3_time,
+            launches_per_epoch={
+                p: rates[p].get(f"spmm_bucketed F={f}", 0) for p in paths})
+        phase("m_k3_time", case=f"train fwd F={f}", x=list(x.shape),
+              **k3_times[f],
               bucket_sum=time_in_turns(
                   lambda: seg._bucket_sum(x, fwd.inv_perm, fwd.buckets),
                   lambda: hk.spmm_bucketed(x, *fwd.k3)))
@@ -924,16 +932,21 @@ def sweep_phases(dev, hk, data, run, trn, rates):
             hk.spmm_ell_reference(nbr, w, xn), dict(rtol=1e-5, atol=5e-5))
         k1_err = max(k1_err, *errs.values())
         phase("n_k1_wide_check", f=f, max_abs_err=errs)
-    args = (trn.msg_slots, trn.msg_sweight, feats(S, 24 * T))
-    library, reason = library_spmm(lambda: ell_csr(*args[:2], S), args[2],
-                                   hk.spmm_ell(*args))
-    k1_time = report(
-        time_in_turns(lambda: hk.spmm_ell_reference(*args),
-                      lambda: hk.spmm_ell(*args)),
-        spmm_ell_work(*args), hk, dev, library, reason,
-        launches_per_epoch=rates["sweep"].get(f"spmm_ell F={24 * T}", 0))
-    phase("n_k1_trials", shape=[list(a.shape) for a in args],
-          max_abs_err=k1_err, **k1_time)
+    # timed at the sweep's widths, 24 T and 16 T, and at the single trial's
+    # F = 16 (its F = 24 is timed in phase (c))
+    k1_times = {}
+    for f, path in ((24 * T, "sweep"), (16 * T, "sweep"), (16, "slice")):
+        args = (trn.msg_slots, trn.msg_sweight, feats(S, f))
+        library, reason = library_spmm(lambda: ell_csr(*args[:2], S),
+                                       args[2], hk.spmm_ell(*args))
+        k1_times[f] = report(
+            time_in_turns(lambda: hk.spmm_ell_reference(*args),
+                          lambda: hk.spmm_ell(*args)),
+            spmm_ell_work(*args), hk, dev, library, reason,
+            launches_per_epoch=rates[path].get(f"spmm_ell F={f}", 0))
+        phase("n_k1_trials" if f == 24 * T else "n_k1_time",
+              shape=[list(a.shape) for a in args], max_abs_err=k1_err,
+              **k1_times[f])
 
     # (o) forward_trials at T = 32 against the single-trial forward of each
     # extracted trial (eval mode), and one train_step_trials on 'ell'
@@ -997,14 +1010,17 @@ def sweep_phases(dev, hk, data, run, trn, rates):
                       n_trials=T, device=dev)
     for k in hk.LAUNCHES:
         hk.LAUNCHES[k] = 0
+    hk.LAUNCHES_BY_WIDTH.clear()
     t0 = time.perf_counter()
     res = tp.refine_vmapped(data, cfg,
                             dataclasses.replace(run, epochs=SWEEP_EPOCHS),
                             n_trials=T, device=dev)
     wall = time.perf_counter() - t0
-    launches = dict(hk.LAUNCHES)
+    launches, by_width = dict(hk.LAUNCHES), dict(hk.LAUNCHES_BY_WIDTH)
     assert launches["spmm_ell"] > 0 and launches["spmm_bucketed"] > 0, \
         launches
+    assert by_width.get("spmm_bucketed F=1") and by_width.get(
+        f"spmm_ell F={16 * T}"), by_width
     assert res["val_aucs"].shape == (T,) and np.isfinite(res["val_aucs"]).all()
     assert res["test_auc"] >= SWEEP_TEST_FLOOR, res["test_auc"]
     assert res["best_val"] >= SWEEP_VAL_FLOOR, res["best_val"]
@@ -1015,7 +1031,7 @@ def sweep_phases(dev, hk, data, run, trn, rates):
           train_epochs_per_s=SWEEP_EPOCHS / res["train_seconds"],
           best_val=res["best_val"], test_auc=res["test_auc"],
           winner=res["winner"], val_aucs=res["val_aucs"].tolist(),
-          launches=launches)
+          launches=launches, launches_by_width=by_width)
 
     # the same sweep at 100 epochs on the kernels and on the plain
     # aggregations, in turns; then a torch.profiler trace of 10 epochs of
@@ -1128,8 +1144,8 @@ def sweep_phases(dev, hk, data, run, trn, rates):
         line["k1"]["bound_ms"] = bound(spmm_ell_work(*args))["bound_ms"]
         phase("s_k_width_scan", f=f, dtype="float32", device_ms=line)
 
-    return {"launches": launches, "k1_err": k1_err, "k1_time": k1_time,
-            "k3_err": k3_err, "k3_time": k3_time}
+    return {"launches": launches, "by_width": by_width, "k1_err": k1_err,
+            "k1_times": k1_times, "k3_err": k3_err, "k3_times": k3_times}
 
 
 def walks_are_valid(walks, starts, eng):
@@ -1284,13 +1300,17 @@ def scale_phases(dev, hk):
     # counts are zeroed just before and read just after.
     for k in hk.LAUNCHES:
         hk.LAUNCHES[k] = 0
+    hk.LAUNCHES_BY_WIDTH.clear()
     res = ts.run_twowl_scale(cfg, device=dev, agg_1wl="ell", verbose=False)
-    launches = dict(hk.LAUNCHES)
+    launches, by_width = dict(hk.LAUNCHES), dict(hk.LAUNCHES_BY_WIDTH)
     assert set(res) == SCALE_KEYS, sorted(res)
     assert res["epochs"] == cfg.epochs and res["loss_decreased"], res
     assert res["test_auc"] >= SCALE_AUC_FLOOR, res
     assert launches["spmm_ell"] > 0 and launches["spmm_bucketed"] > 0, launches
-    phase("w_twowl_scale", launches=launches, **res)
+    assert by_width.get("spmm_bucketed F=1") and by_width.get(
+        "spmm_ell F=16"), by_width
+    phase("w_twowl_scale", launches=launches, launches_by_width=by_width,
+          **res)
 
     # the same data and seeding once more, for the turns and for phase (x)
     t0 = time.perf_counter()
@@ -1477,9 +1497,8 @@ def scale_phases(dev, hk):
           node2vec=printed["node2vec"], emb_header=header,
           scale_twowl=res_cli, written=written)
 
-    return {"launches": launches, "k1_err": k1_err, "k1_time": k1_time[24],
-            "k3_err": k3_err,
-            "k3_time": k3_time["scale fwd F=32 bfloat16"]}
+    return {"launches": launches, "by_width": by_width, "k1_err": k1_err,
+            "k1_times": k1_time, "k3_err": k3_err, "k3_times": k3_time}
 
 
 def seal_phases(dev, hk):
@@ -3194,21 +3213,38 @@ def main():
     # (phase p) and their times at its shapes (phases n, m), and with the
     # 50k-node run's (phase w) and their times at its shapes (phase x; K3's
     # error there is its bf16 one, a bf16 ulp of sums up to ~15 rows); K2
-    # with the collab run's (phase j)
+    # with the collab run's (phase j); then rows by width
     print(json.dumps({"kernels": [
         row("spmm_ell", "twowl sweep", "spmm_ell.cu", 68,
             sweep["launches"]["spmm_ell"], max(max_err, sweep["k1_err"]),
-            sweep["k1_time"]),
+            sweep["k1_times"][24 * SWEEP_TRIALS]),
         row("spmm_bucketed", "twowl sweep", "spmm_bucketed.cu", 249,
             sweep["launches"]["spmm_bucketed"],
-            max(gcn["k3_err"], sweep["k3_err"]), sweep["k3_time"]),
+            max(gcn["k3_err"], sweep["k3_err"]),
+            sweep["k3_times"][32 * SWEEP_TRIALS]),
         row("sddmm", "gcn collab", "sddmm.cu", 144, gcn["launches"]["sddmm"],
             gcn["k2_err"], gcn["k2_time"]),
         row("spmm_ell", "twowl scale", "spmm_ell.cu", 68,
-            scale["launches"]["spmm_ell"], scale["k1_err"], scale["k1_time"]),
+            scale["launches"]["spmm_ell"], scale["k1_err"],
+            scale["k1_times"][24]),
         row("spmm_bucketed", "twowl scale", "spmm_bucketed.cu", 249,
             scale["launches"]["spmm_bucketed"], scale["k3_err"]["bf16"],
-            scale["k3_time"]),
+            scale["k3_times"]["scale fwd F=32 bfloat16"]),
+        # the narrow shapes, each with its width's launches in the main
+        # run: K3's degree pass at F = 1 (the slot kernel) and K1's other
+        # widths (F = 16 at 50k nodes: the packed kernel)
+        row("spmm_bucketed", "twowl sweep F=1 f32", "spmm_bucketed.cu", 249,
+            sweep["by_width"]["spmm_bucketed F=1"], sweep["k3_err"],
+            sweep["k3_times"][1]),
+        row("spmm_ell", f"twowl sweep F={16 * SWEEP_TRIALS}", "spmm_ell.cu",
+            68, sweep["by_width"][f"spmm_ell F={16 * SWEEP_TRIALS}"],
+            sweep["k1_err"], sweep["k1_times"][16 * SWEEP_TRIALS]),
+        row("spmm_bucketed", "twowl scale F=1 f32", "spmm_bucketed.cu", 249,
+            scale["by_width"]["spmm_bucketed F=1"], scale["k3_err"]["f32"],
+            scale["k3_times"]["scale fwd F=1 float32"]),
+        row("spmm_ell", "twowl scale F=16", "spmm_ell.cu", 68,
+            scale["by_width"]["spmm_ell F=16"], scale["k1_err"],
+            scale["k1_times"][16]),
         # the parallel group: launches summed over the four ranks of its
         # main paths (par_collab's two runs, par_twowl's trial-sharded
         # sweep), errors the worst of any rank against the plain version

@@ -1,0 +1,486 @@
+#!/usr/bin/env python3
+"""Times the port's hand-written kernels on one card in turns, beyond what
+`chip_smoke.py` times: each path of K3 and K1 forced at the shapes of the
+TwoWL and GCN paths (the numbers behind the dispatch thresholds written in
+`csrc/spmm_bucketed.cu` and `csrc/spmm_ell.cu`), and, with `--other`, this
+checkout's kernels against another build of their sources at every shape of
+the kernel table in `PERF.md`.
+
+    python3 kernel_turns.py --groups check,paths
+    python3 kernel_turns.py --groups compare \\
+        --other build/parent/linkpred_tpu_torch/csrc
+
+`--other` names another revision's `csrc/` directory, for instance the
+parent commit's, unpacked under `build/` (which git ignores):
+`mkdir -p build/parent && git archive HEAD~1 linkpred_tpu_torch/csrc | tar
+-x -C build/parent`. Its `spmm_ell.cu`, `spmm_bucketed.cu` and `sddmm.cu`
+are built beside this checkout's and each shape is timed other, this, this,
+other. Every time is the device ms per call of `chip_smoke.kernel_ms` (two
+profiler captures that agree within 5 %); the variants of a shape are timed
+in order and then in reverse, so each sees the card as warm as the others,
+and the two turns are printed beside their mean. One JSON line per
+measurement, the card's name and power limit first; `--out` appends them to
+a file too.
+
+The forced paths come from copies of this checkout's K3 and K1 sources
+under `build/kernel_turns/`, each with an entry point appended that launches
+one kernel by name (`FORCE_K3`, `FORCE_K1`), and, for K3's slot kernel, one
+copy for each value of `kSlotsUnroll` in `--unrolls`. Needs a card and
+`nvcc`; the data are the smoke's (fb-pages-food's TwoWL splits, TwoWL at 50k
+nodes, the collab-scale GCN graph and, for `compare`, its four-rank
+layouts), built on the host first.
+"""
+
+import argparse
+import ctypes
+import dataclasses
+import json
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from linkpred_tpu_torch.kernels import build
+from linkpred_tpu_torch.ops import hopper_kernels as hk
+
+ROOT = Path(__file__).resolve().parent
+CSRC = ROOT / "linkpred_tpu_torch" / "csrc"
+WORK = ROOT / "build" / "kernel_turns"
+GROUPS = ("check", "paths", "compare")
+
+# kernel: 0 the warp-per-row kernel (one feature a lane), else the slot
+# kernel with `kernel` lanes a row (rows under 16 bytes only)
+FORCE_K3 = r'''
+extern "C" int force_k3(int dtype, int kernel, const void* x,
+                        const int32_t* inv_perm, const int32_t* order,
+                        const int32_t* nbr, const float* w, void* out,
+                        int64_t n, int64_t nx, int64_t f, int64_t n_buckets,
+                        const int64_t* shapes, void* stream) {
+  Buckets buckets{};
+  buckets.count = static_cast<int>(n_buckets);
+  int64_t rows = 0, slots = 0;
+  for (int b = 0; b < buckets.count; ++b) {
+    buckets.slot0[b] = slots;
+    rows += shapes[2 * b];
+    slots += shapes[2 * b] * shapes[2 * b + 1];
+    buckets.row_end[b] = static_cast<int>(rows);
+    buckets.width[b] = static_cast<int>(shapes[2 * b + 1]);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ni = static_cast<int>(n), nxi = static_cast<int>(nx),
+            fi = static_cast<int>(f);
+#define FORCE(T)                                                              \
+  {                                                                           \
+    const T* xt = static_cast<const T*>(x);                                   \
+    T* ot = static_cast<T*>(out);                                             \
+    if (kernel == 0) {                                                        \
+      const unsigned blocks =                                                 \
+          static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);   \
+      spmm_bucketed_kernel<T, 1><<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(   \
+          xt, inv_perm, order, nbr, w, ot, ni, nxi, fi, buckets);             \
+    } else {                                                                  \
+      switch (kernel) {                                                       \
+        case 2: launch_slots_group<T, 2>(xt, inv_perm, order, nbr, w, ot, n,  \
+                                         nxi, fi, buckets, s); break;         \
+        case 4: launch_slots_group<T, 4>(xt, inv_perm, order, nbr, w, ot, n,  \
+                                         nxi, fi, buckets, s); break;         \
+        case 8: launch_slots_group<T, 8>(xt, inv_perm, order, nbr, w, ot, n,  \
+                                         nxi, fi, buckets, s); break;         \
+        case 16: launch_slots_group<T, 16>(xt, inv_perm, order, nbr, w, ot,   \
+                                           n, nxi, fi, buckets, s); break;    \
+        case 32: launch_slots_group<T, 32>(xt, inv_perm, order, nbr, w, ot,   \
+                                           n, nxi, fi, buckets, s); break;    \
+        default: launch_slots_group<T, 1>(xt, inv_perm, order, nbr, w, ot, n, \
+                                          nxi, fi, buckets, s);               \
+      }                                                                       \
+    }                                                                         \
+  }
+  if (dtype == 0) FORCE(float) else FORCE(__nv_bfloat16)
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+
+# kernel: 0 the warp-per-row kernel, 1 the wide kernel, 2 the packed kernel
+FORCE_K1 = r'''
+extern "C" int force_k1(int kernel, const int32_t* nbr, const float* w,
+                        const float* x, float* out, int64_t m, int64_t d,
+                        int64_t nx, int64_t f, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mi = static_cast<int>(m), di = static_cast<int>(d),
+            nxi = static_cast<int>(nx), fi = static_cast<int>(f);
+  if (kernel == 0) {
+    const unsigned blocks =
+        static_cast<unsigned>((m + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    spmm_ell_kernel<<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
+        nbr, w, x, out, mi, di, nxi, fi);
+  } else if (kernel == 1) {
+    const int64_t tiles = (f + kTile - 1) / kTile;
+    spmm_ell_wide_kernel<<<static_cast<unsigned>(m * tiles), kWarp * kSplit,
+                           0, s>>>(nbr, w, x, out, di, nxi, fi,
+                                   static_cast<int>(tiles));
+  } else {
+    const int64_t groups = f / 4;
+    if (groups <= 1) launch_packed<1>(nbr, w, x, out, m, d, nx, f, s);
+    else if (groups <= 2) launch_packed<2>(nbr, w, x, out, m, d, nx, f, s);
+    else if (groups <= 4) launch_packed<4>(nbr, w, x, out, m, d, nx, f, s);
+    else if (groups <= 8) launch_packed<8>(nbr, w, x, out, m, d, nx, f, s);
+    else if (groups <= 16) launch_packed<16>(nbr, w, x, out, m, d, nx, f, s);
+    else launch_packed<32>(nbr, w, x, out, m, d, nx, f, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+UNROLL_LINE = "constexpr int kSlotsUnroll = {};"
+
+
+class Out:
+    """One JSON line per measurement on stdout, and in `path` if given."""
+
+    def __init__(self, path):
+        self.path = Path(path) if path else None
+
+    def __call__(self, **kv):
+        line = json.dumps(kv)
+        print(line, flush=True)
+        if self.path is not None:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            with self.path.open("a") as fh:
+                fh.write(line + "\n")
+
+
+def _nvcc(src: Path, out: Path) -> Path:
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                           str(out), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    return out
+
+
+def build_variants(unrolls, other):
+    """The forced-path copies of this checkout's sources (one K3 copy per
+    unroll) and, with `other`, the other revision's K1, K3 and K2, all
+    built at once beside this checkout's own kernels. Returns name ->
+    loaded library with its entry point's types declared."""
+    src_dir, lib_dir = WORK / "src", WORK / "lib"
+    src_dir.mkdir(parents=True, exist_ok=True)
+    lib_dir.mkdir(parents=True, exist_ok=True)
+    (src_dir / "feature_io.cuh").write_text(
+        (CSRC / "feature_io.cuh").read_text())
+    k3 = (CSRC / "spmm_bucketed.cu").read_text()
+    default = next(u for u in range(1, 65) if UNROLL_LINE.format(u) in k3)
+    jobs = {}
+    for u in unrolls:
+        p = src_dir / f"k3_unroll{u}.cu"
+        p.write_text(k3.replace(UNROLL_LINE.format(default),
+                                UNROLL_LINE.format(u)) + FORCE_K3)
+        jobs[f"k3 unroll {u}"] = p
+    p = src_dir / "k1.cu"
+    p.write_text((CSRC / "spmm_ell.cu").read_text() + FORCE_K1)
+    jobs["k1"] = p
+    if other is not None:
+        for name in ("spmm_ell", "spmm_bucketed", "sddmm"):
+            jobs[f"other {name}"] = Path(other) / f"{name}.cu"
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:
+        own = pool.submit(build.libraries, ("spmm_ell", "spmm_bucketed",
+                                            "sddmm", "empty_launch"))
+        done = {k: pool.submit(_nvcc, src, lib_dir / f"{k.replace(' ', '_')}.so")
+                for k, src in jobs.items()}
+        libs = {k: ctypes.CDLL(str(f.result())) for k, f in done.items()}
+        own.result()
+    entries = {}
+    for u in unrolls:
+        fn = libs[f"k3 unroll {u}"].force_k3
+        fn.argtypes = [_I32, _I32] + [_P] * 6 + [_I64] * 4 + [_P, _P]
+        entries[f"k3 unroll {u}"] = fn
+    fn = libs["k1"].force_k1
+    fn.argtypes = [_I32] + [_P] * 4 + [_I64] * 4 + [_P]
+    entries["k1"] = fn
+    for name in ("spmm_ell", "spmm_bucketed", "sddmm"):
+        symbol, argtypes = hk._ENTRY_POINTS[name]
+        entries[f"this {name}"] = fn = getattr(build.library(name), symbol)
+        fn.argtypes = argtypes
+        if other is not None:
+            fn = getattr(libs[f"other {name}"], symbol)
+            fn.argtypes = argtypes
+            entries[f"other {name}"] = fn
+    for fn in entries.values():
+        fn.restype = _I32
+    return entries, default
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def k3_call(fn, x, k3, kernel=None):
+    """K3 through `fn`: a public entry (`kernel` None) or `force_k3`."""
+    inv_perm, shapes, nbr, w = k3[:4]
+    order = k3[4] if len(k3) > 4 else None
+    n, (nx, f) = inv_perm.shape[0], x.shape
+    table = (ctypes.c_int64 * (2 * len(shapes)))(
+        *(v for shape in shapes for v in shape))
+    out = torch.empty((n, f), dtype=x.dtype, device=x.device)
+    head = (hk._DTYPE_CODES[x.dtype],)
+    if kernel is not None:
+        head += (kernel,)
+    rc = fn(*head, x.data_ptr(), inv_perm.data_ptr(),
+            None if order is None else order.data_ptr(), nbr.data_ptr(),
+            w.data_ptr(), out.data_ptr(), n, nx, f, len(shapes),
+            ctypes.addressof(table), _stream())
+    assert rc == 0, f"K3 launch refused: {rc}"
+    return out
+
+
+def k1_call(fn, nbr, w, x, kernel=None):
+    """K1 through `fn`: a public entry (`kernel` None) or `force_k1`."""
+    (m, d), (nx, f) = nbr.shape, x.shape
+    out = torch.empty((m, f), device=x.device)
+    head = () if kernel is None else (kernel,)
+    rc = fn(*head, nbr.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(),
+            m, d, nx, f, _stream())
+    assert rc == 0, f"K1 launch refused: {rc}"
+    return out
+
+
+def turns(fns):
+    """Device ms per call of each of `fns`, timed in order and then in
+    reverse: (name -> mean, name -> [first turn, second turn])."""
+    got = {k: [] for k in fns}
+    for k in [*fns, *reversed(list(fns))]:
+        got[k].append(cs.kernel_ms(fns[k]))
+    return {k: sum(v) / 2 for k, v in got.items()}, got
+
+
+def layouts(dev, need_sharded):
+    """The K3 operands of the paths, by name -> (k3 tuple, rows of x), and
+    K1's slot matrices by name -> (nbr, w, rows of x)."""
+    from linkpred_tpu_torch.models import twowl as m
+    from linkpred_tpu_torch.ops import spmm
+    from linkpred_tpu_torch.pipelines import gcn_scale as gs
+    from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
+    from linkpred_tpu_torch.pipelines import twowl_scale as ts
+
+    run = tp.TwoWLRunConfig()
+    edges, num_nodes = tp.load_edges()
+    data = tp.build_data(edges, num_nodes, run, np.random.default_rng(0))
+    trn, val, tst = (m.SplitArrays.from_split(s, dev)
+                     for s in (data.train, data.val, data.test))
+    scale = m.SplitArrays.from_split(
+        ts.build_scale_data(ts.ScaleTwoWLConfig()).train, dev)
+    cfg = gs.ScaleGCNConfig(steps=60, learning_rate=3e-3)
+    problem = gs.build_problem(cfg)
+    k3 = {"50k fwd": (scale.e1_cops[0].k3, scale.num_rows),
+          "50k bwd": (scale.e1_cops[1].k3, scale.num_rows),
+          "fb train fwd": (trn.e1_cops[0].k3, trn.num_rows),
+          "fb train bwd": (trn.e1_cops[1].k3, trn.num_rows),
+          "fb val fwd": (val.e1_cops[0].k3, val.num_rows),
+          "fb test fwd": (tst.e1_cops[0].k3, tst.num_rows),
+          "gcn": (spmm.BucketedEll.from_graph(problem[0]).operands(dev),
+                  cfg.nodes)}
+    if need_sharded:
+        from linkpred_tpu_torch.parallel import spmm_shard
+
+        ns = gs.build_sharded(cfg, cs.PAR_RANKS, problem)
+        halo = gs.build_sharded(
+            dataclasses.replace(cfg, aggregation="halo"), cs.PAR_RANKS,
+            problem)
+        k3["node-sharded rank 0"] = (spmm_shard.node_sharded_operands(
+            ns["stacked"], 0, dev), cfg.nodes)
+        k3["halo rank 0"] = (tuple(halo["layout"].operands(0, dev).k3),
+                             len(cs._halo_table_rows(halo["layout"], 0)))
+    k1 = {"fb train": (trn.msg_slots, trn.msg_sweight, trn.num_msg),
+          "50k": (scale.msg_slots, scale.msg_sweight, scale.num_msg)}
+    return k3, k1
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--groups", default="check,paths",
+                        help="comma-separated: " + ", ".join(GROUPS))
+    parser.add_argument("--other", default=None,
+                        help="another revision's csrc/ directory, for "
+                             "the compare group")
+    parser.add_argument("--unrolls", default="4,8,16",
+                        help="values of K3's kSlotsUnroll to build")
+    parser.add_argument("--out", default=None,
+                        help="a file to append the JSON lines to")
+    args = parser.parse_args()
+    groups = args.groups.split(",")
+    if not set(groups) <= set(GROUPS):
+        parser.error(f"unknown groups {sorted(set(groups) - set(GROUPS))}")
+    if "compare" in groups and not args.other:
+        parser.error("the compare group needs --other")
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_turns: no CUDA device is visible")
+    from linkpred_tpu_torch.utils.device import cuda_device
+
+    emit = Out(args.out)
+    dev = cuda_device()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    unrolls = [int(u) for u in args.unrolls.split(",")]
+    t0 = time.perf_counter()
+    entries, default_unroll = build_variants(unrolls, args.other)
+    emit(step="build", device=smi, default_unroll=default_unroll,
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    k3_layouts, k1_layouts = layouts(dev, "compare" in groups)
+    emit(step="data", seconds=time.perf_counter() - t0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tol = {torch.float32: cs.F32_TOL, torch.bfloat16: cs.BF16_TOL}
+    bf16, f32 = torch.bfloat16, torch.float32
+    slot_groups = (1, 2, 4, 8, 16, 32)
+
+    def feats(rows, f, dtype=f32):
+        return torch.randn((rows, f), generator=gen, device=dev).to(dtype)
+
+    def force3(u, kernel):
+        return lambda x, k3: k3_call(entries[f"k3 unroll {u}"], x, k3, kernel)
+
+    if "check" in groups:
+        # every forced K3 and K1 kernel against the plain version
+        for name, (k3, rows) in k3_layouts.items():
+            for f, dtype in ((1, f32), (3, f32), (7, bf16), (32, f32)):
+                x = feats(rows, f, dtype)
+                ref = hk.spmm_bucketed_reference(x, *k3)
+                kernels = {"public": lambda x, k3: k3_call(
+                    entries["this spmm_bucketed"], x, k3),
+                           "warp per row": force3(unrolls[0], 0)}
+                for u in unrolls if f * x.element_size() < 16 else ():
+                    for g in slot_groups:
+                        kernels[f"slots G={g} unroll {u}"] = force3(u, g)
+                err = max(cs.check(f"{name} F={f} {k}", fn(x, k3), ref,
+                                   tol[dtype]) for k, fn in kernels.items())
+                emit(step="check K3", layout=name, f=f, dtype=str(dtype),
+                     max_abs_err=err)
+        for name, (nbr, w, nx) in k1_layouts.items():
+            for f in (4, 16, 24, 64, 128):
+                x = feats(nx, f)
+                ref = hk.spmm_ell_reference(nbr, w, x)
+                err = max(cs.check(f"K1 {name} F={f} kernel {k}",
+                                   k1_call(entries["k1"], nbr, w, x, k), ref,
+                                   dict(rtol=1e-5, atol=5e-5))
+                          for k in (0, 1, 2))
+                emit(step="check K1", layout=name, f=f, max_abs_err=err)
+
+    if "paths" in groups:
+        # K3 at F = 1 f32: every group and unroll of the slot kernel, the
+        # warp-per-row kernel and the public dispatch
+        for name, (k3, rows) in k3_layouts.items():
+            if name.endswith("rank 0"):
+                continue
+            x = feats(rows, 1)
+            fns = {"public": lambda: k3_call(entries["this spmm_bucketed"],
+                                             x, k3),
+                   "warp per row": lambda: force3(default_unroll, 0)(x, k3)}
+            for u in unrolls:
+                for g in slot_groups:
+                    fns[f"G={g} unroll {u}"] = (
+                        lambda u=u, g=g: force3(u, g)(x, k3))
+            mean, raw = turns(fns)
+            emit(step="K3 slot kernel F=1 f32", layout=name, rows=rows,
+                 buckets=[list(b) for b in k3[1]],
+                 fastest=min(mean, key=mean.get), ms=mean, turns=raw)
+        # the other rows under 16 bytes, at the default unroll
+        for name in ("50k fwd", "gcn", "fb train fwd"):
+            k3, rows = k3_layouts[name]
+            for f, dtype in ((2, f32), (3, f32), (1, bf16), (2, bf16),
+                             (4, bf16), (7, bf16)):
+                x = feats(rows, f, dtype)
+                fns = {"public": lambda: k3_call(
+                    entries["this spmm_bucketed"], x, k3),
+                       "warp per row": lambda: force3(default_unroll, 0)(
+                           x, k3)}
+                for g in slot_groups[:-1]:
+                    fns[f"G={g}"] = lambda g=g: force3(default_unroll, g)(
+                        x, k3)
+                mean, raw = turns(fns)
+                emit(step="K3 slot kernel", layout=name, f=f,
+                     dtype=str(dtype), fastest=min(mean, key=mean.get),
+                     ms=mean, turns=raw)
+        # K1: the packed, wide and warp-per-row kernels on fb-pages-food's
+        # slots (D = 114) tiled to more rows, and on the 50k-node slots
+        # (D = 32) doubled in width
+        nbr0, w0, nx0 = k1_layouts["fb train"]
+        nbr1, w1, nx1 = k1_layouts["50k"]
+        shapes = [(f"fb x{r}", nbr0.repeat(r, 1), w0.repeat(r, 1), nx0, f)
+                  for r in (1, 4, 16, 80) for f in (4, 16, 24, 32, 64, 128)]
+        shapes += [(f"50k D={32 * r}", nbr1.repeat(1, r).contiguous(),
+                    w1.repeat(1, r).contiguous(), nx1, f)
+                   for r in (1, 2, 4) for f in (16, 24, 64, 128)]
+        for name, nbr, w, nx, f in shapes:
+            x = feats(nx, f)
+            fns = {"public": lambda: k1_call(entries["this spmm_ell"], nbr,
+                                             w, x)}
+            for k, label in enumerate(("warp per row", "wide", "packed")):
+                fns[label] = lambda k=k: k1_call(entries["k1"], nbr, w, x, k)
+            mean, raw = turns(fns)
+            emit(step="K1 kernels", layout=name, nbr=list(nbr.shape), f=f,
+                 fastest=min(mean, key=mean.get), ms=mean, turns=raw)
+
+    if "compare" in groups:
+        # the other build against this one at every shape of the kernel
+        # table: K3 ...
+        k3_shapes = [("fb train fwd", f, f32) for f in (1, 32, 256, 1024)]
+        k3_shapes += [("fb train fwd", 1024, bf16), ("fb train bwd", 1, f32),
+                      ("fb train bwd", 32, f32), ("fb val fwd", 1, f32),
+                      ("fb test fwd", 1, f32), ("gcn", 64, bf16),
+                      ("gcn", 128, bf16), ("gcn", 1, f32),
+                      ("50k fwd", 32, bf16), ("50k bwd", 32, bf16),
+                      ("50k fwd", 1, f32), ("50k fwd", 2, bf16),
+                      ("node-sharded rank 0", 64, bf16),
+                      ("node-sharded rank 0", 128, bf16),
+                      ("halo rank 0", 64, bf16), ("halo rank 0", 128, bf16)]
+        for name, f, dtype in k3_shapes:
+            k3, rows = k3_layouts[name]
+            x = feats(rows, f, dtype)
+            mean, raw = turns({
+                "other": lambda: k3_call(entries["other spmm_bucketed"], x,
+                                         k3),
+                "this": lambda: k3_call(entries["this spmm_bucketed"], x,
+                                        k3)})
+            emit(step="compare K3", layout=name, f=f, dtype=str(dtype),
+                 this_over_other=mean["this"] / mean["other"], ms=mean,
+                 turns=raw)
+        # ... K1 ...
+        for name, f in [("fb train", f) for f in (16, 24, 192, 512, 768)] + [
+                ("50k", 16), ("50k", 24)]:
+            nbr, w, nx = k1_layouts[name]
+            x = feats(nx, f)
+            mean, raw = turns({
+                "other": lambda: k1_call(entries["other spmm_ell"], nbr, w,
+                                         x),
+                "this": lambda: k1_call(entries["this spmm_ell"], nbr, w, x)})
+            emit(step="compare K1", layout=name, nbr=list(nbr.shape), f=f,
+                 this_over_other=mean["this"] / mean["other"], ms=mean,
+                 turns=raw)
+        # ... and K2 at the GCN step's shape (16,384 pairs, F = 128 bf16)
+        e, n = 16_384, 235_000
+        src, dst = (torch.randint(0, n, (e,), generator=gen, device=dev,
+                                  dtype=torch.int32) for _ in range(2))
+        table = feats(n, 128, bf16)
+
+        def k2(fn):
+            out = torch.empty(e, device=dev)
+            rc = fn(1, src.data_ptr(), dst.data_ptr(), table.data_ptr(),
+                    table.data_ptr(), out.data_ptr(), e, n, n, 128, _stream())
+            assert rc == 0, f"K2 launch refused: {rc}"
+            return out
+
+        mean, raw = turns({"other": lambda: k2(entries["other sddmm"]),
+                           "this": lambda: k2(entries["this sddmm"])})
+        emit(step="compare K2", pairs=e, f=128, dtype="torch.bfloat16",
+             this_over_other=mean["this"] / mean["other"], ms=mean,
+             turns=raw)
+    emit(step="done", estimated_readings=cs.ESTIMATED_READINGS[0])
+
+
+if __name__ == "__main__":
+    main()

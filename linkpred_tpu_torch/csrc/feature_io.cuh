@@ -6,7 +6,9 @@
 // aligned base, which `pairs_aligned` checks on the host. The 16-byte forms
 // move kWide neighbouring features (4 f32 or 8 bf16) as one uint4 access and
 // need rows of a multiple of 16 bytes on a 16-byte aligned base
-// (`wide_aligned`).
+// (`wide_aligned`). `load_feature_if` reads one feature under a predicate,
+// for the kernels that give each lane a slot of a row narrower than 16
+// bytes.
 
 #pragma once
 
@@ -106,6 +108,45 @@ __device__ __forceinline__ uint4 load16_if(const void* p, bool pred) {
   return r;
 }
 
+// 4 bytes from `p` through the read-only path when `pred` holds, else 0
+// without touching memory; a run of these, like load16_if, has no branch
+// between them.
+__device__ __forceinline__ uint32_t load32_if(const void* p, bool pred) {
+  uint32_t r;
+  asm("{\n\t"
+      ".reg .pred q;\n\t"
+      "setp.ne.s32 q, %2, 0;\n\t"
+      "mov.u32 %0, 0;\n\t"
+      "@q ld.global.nc.u32 %0, [%1];\n\t"
+      "}"
+      : "=r"(r)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return r;
+}
+
+// The same for 2 bytes, returned in the low half.
+__device__ __forceinline__ uint32_t load16bit_if(const void* p, bool pred) {
+  unsigned short r;
+  asm("{\n\t"
+      ".reg .pred q;\n\t"
+      "setp.ne.s32 q, %2, 0;\n\t"
+      "mov.u16 %0, 0;\n\t"
+      "@q ld.global.nc.u16 %0, [%1];\n\t"
+      "}"
+      : "=h"(r)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return r;
+}
+
+// One feature as f32 when `pred` holds, else 0, by a predicated load.
+__device__ __forceinline__ float load_feature_if(const float* p, bool pred) {
+  return __uint_as_float(load32_if(p, pred));
+}
+__device__ __forceinline__ float load_feature_if(const __nv_bfloat16* p,
+                                                 bool pred) {
+  return __uint_as_float(load16bit_if(p, pred) << 16);
+}
+
 // True when rows of `f` features of `elem_bytes` each, starting at every
 // pointer given, can be read and written as pairs.
 inline bool pairs_aligned(int64_t f, int64_t elem_bytes,
@@ -128,4 +169,22 @@ inline bool wide_aligned(int64_t f, int64_t elem_bytes, int64_t min_row_bytes,
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   }
   return true;
+}
+
+// The warps the current device holds at once (132 SMs x 64 on an H100), read
+// once; 0 if the device cannot be asked.
+inline int64_t resident_warps() {
+  static const int64_t warps = [] {
+    int device = 0, sms = 0, threads = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&threads,
+                               cudaDevAttrMaxThreadsPerMultiProcessor,
+                               device) != cudaSuccess) {
+      return int64_t{0};
+    }
+    return static_cast<int64_t>(sms) * (threads / 32);
+  }();
+  return warps;
 }

@@ -19,9 +19,13 @@
 //
 // Types: x [NX, F] float32 or bfloat16, out [N, F] of the same type. Each
 // weight is rounded to x's type before the product (the reference casts the
-// weights to x.dtype), products are summed in f32 in slot order, and the sum
-// is rounded to out's type once. A slot whose weight is 0 (ELL padding: index
-// 0, weight 0) or whose index lies outside [0, NX) contributes nothing.
+// weights to x.dtype), products are summed in f32, and the sum is rounded to
+// out's type once. A slot whose weight is 0 (ELL padding: index 0, weight 0)
+// or whose index lies outside [0, NX) contributes nothing. The order of the
+// sums is fixed, so a result is the same bit for bit from run to run: slot
+// order in the warp-per-row and wide kernels; in the slot kernel, lane g of a
+// row's group adds its slots g, g + G, g + 2G, ... in that order, and the G
+// lanes' sums are then added by a butterfly (lanes 1, 2, ..., G / 2 apart).
 //
 // What bounds it on an H100 (80 GB HBM3, 3.35 TB/s; the bound counts each row
 // of x that a live slot names once, the live slots' index and weight, inv_perm
@@ -36,9 +40,25 @@
 //   - The GCN slice: 235,000 rows, 1,406,216 slots in 10 buckets of widths
 //     2-64, x [235000, 64 or 128] bf16 (rows of 128 or 256 B): 69 / 127 MB,
 //     0.021 / 0.038 ms; the row gathers are 180 / 360 MB, part of them from L2.
+//   - The 2-WL degree pass at 50k nodes: x [703916, 1] f32, 703,916 output
+//     rows, 4,871,231 slots in buckets of widths 4, 8 and 15: 36.7 MB, nearly
+//     all of it the slots' index and weight, 0.011 ms. On fb-pages-food,
+//     x [7112, 1]: 7,112 rows of up to 114 slots, well under an empty launch.
 //
-// Design: two kernels, chosen in `launch` from the shape and alignment of x
+// Design: three kernels, chosen in `launch` from the shape and alignment of x
 // and the count of output rows.
+//   - Rows narrower than 16 bytes (`spmm_bucketed_slots_kernel`): a group of
+//     G lanes per output row, one lane per slot: lane g takes the row's slots
+//     g, g + G, ..., kSlotsUnroll of them at once, each lane issuing their
+//     index and weight reads and then their feature reads, predicated and
+//     without a branch between them, before its multiply-adds; the group's
+//     sums meet in a butterfly of __shfl_xor_sync. A warp holds 32 / G rows,
+//     so a row of 4 slots no longer costs a warp with one lane at work and
+//     its slots no longer wait on each other. G is 2 when the output rows
+//     outnumber the warps the card holds at once (the card is filled many
+//     times over, and short groups hold more rows a warp), else the least
+//     power of two whose kSlotsUnroll rounds cover the widest bucket (the
+//     call lasts as long as its widest row).
 //   - Wide rows (`spmm_bucketed_wide_kernel`): one warp per (output row, tile
 //     of 32 lanes x 16 bytes), so the feature axis is spread over the grid:
 //     a slot of a tile is one coalesced read of up to 512 bytes and a row of
@@ -52,10 +72,11 @@
 //     across F, two neighbouring features per lane (float2 / __nv_bfloat162)
 //     when F is even and the bases are aligned; padding is skipped by a
 //     warp-uniform branch.
-// Both read 32 of a row's slots per coalesced load of nbr and w and broadcast
-// each with __shfl_sync. The bucket search is a scan over <= 64 entries of a
-// table in kernel parameter (constant) memory, uniform across the warp. No
-// shared memory, no atomics: each output element is written once.
+// These two read 32 of a row's slots per coalesced load of nbr and w and
+// broadcast each with __shfl_sync. The bucket search is a scan over <= 64
+// entries of a table in kernel parameter (constant) memory (all lanes that
+// are still scanning read the same entry). No shared memory, no atomics:
+// each output element is written once.
 //
 // Tried on the same card and dropped: staging the neighbour rows of a (row,
 // 4 KB tile) through a shared-memory ring filled by `cp.async.bulk` against an
@@ -93,6 +114,28 @@ constexpr int kMaxBuckets = 64;  // MAX_BUCKETS of ops/hopper_kernels.py
 // holds warps at once.
 constexpr int64_t kWideMinRowBytes = 256;
 constexpr int64_t kWideMinRowBytesFewRows = 128;
+// Rows narrower than 16 bytes take the slot kernel (F <= 3 in f32, <= 7 in
+// bf16), with kSlotsUnroll slots a lane in flight at once. Its group is
+// kSlotsMinGroup lanes when there are more output rows than the card holds
+// warps at once, else the least power of two, up to 32 lanes, whose
+// kSlotsUnroll rounds cover the widest bucket. Device ms per call at F = 1
+// f32 on an NVIDIA H100 80GB HBM3 at 700 W, each group forced and timed in
+// turns by kernel_turns.py (the warp-per-row kernel in brackets):
+//   703,916 rows of widths 4 / 8 / 15 (50k nodes): G = 1 0.0368, 2 0.0361,
+//     4 0.0430, 8 0.0713 (0.2407); the transposed operands, widths 4-26:
+//     G = 2 0.0416, 4 0.0460 (0.2214);
+//   235,000 rows of widths 2-64 (the GCN layout): G = 1 0.0200, 2 0.0132,
+//     4 0.0187, 8 0.0289 (0.0647);
+//   7,112 rows of widths 4-114 (fb-pages-food): G = 2 0.0059, 4 0.0038,
+//     8 0.0031, 16 0.0030, 32 0.0045 (0.0148).
+// 16 slots a lane in flight gained at most 1 % (50k nodes: G = 1 0.0358),
+// 4 lost 3-18 %. At F = 2-3 f32 and F = 1-7 bf16 the same rule runs 2.6-6.3x
+// faster than the warp-per-row kernel on all three layouts; the group it
+// picks is the fastest or within 1 % of it, except at F = 2-7 bf16, where
+// G = 1 (50k nodes) or G / 2 (fb-pages-food) takes up to 25 % less time.
+constexpr int64_t kSlotsMaxRowBytes = 15;
+constexpr int kSlotsUnroll = 8;
+constexpr int kSlotsMinGroup = 2;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 struct Buckets {
@@ -104,8 +147,8 @@ struct Buckets {
 
 // The slots of concat row p: its bucket's width and its first slot. Width 0
 // (the zero row, or p outside the layout) leaves the sums at 0. A scan over
-// <= 64 entries of the table in kernel parameter (constant) memory, uniform
-// across the warp.
+// <= 64 entries of the table in kernel parameter (constant) memory, which
+// reads one entry for all lanes still scanning.
 struct RowSlots {
   int width;
   int64_t slot;
@@ -201,6 +244,87 @@ spmm_bucketed_kernel(const T* __restrict__ x,
   }
 }
 
+// Rows narrower than 16 bytes (F <= kMaxF): kGroup lanes per output row,
+// the row's slots spread over them, lane g of the group taking slots g,
+// g + kGroup, ... . Each lane issues kSlotsUnroll slots' index and weight
+// reads, then their feature reads, all predicated and without a branch
+// between them, before its multiply-adds; the group's partial sums then
+// meet in a butterfly of __shfl_xor_sync (lanes 1, 2, ..., kGroup / 2
+// apart), after which every lane of the group holds the same sums, and lane
+// g writes the features c with c % kGroup == g. Lanes past the last output
+// row take no slots and stay for the shuffles.
+template <typename T, int kGroup, int kMaxF>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+spmm_bucketed_slots_kernel(const T* __restrict__ x,
+                           const int32_t* __restrict__ inv_perm,
+                           const int32_t* __restrict__ order,
+                           const int32_t* __restrict__ nbr,
+                           const float* __restrict__ w, T* __restrict__ out,
+                           int n, int nx, int f, const Buckets buckets) {
+  constexpr int kStep = kGroup * kSlotsUnroll;
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane % kGroup;
+  const int64_t rank =
+      (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp)
+          * (kWarp / kGroup) + lane / kGroup;
+  int row = 0;
+  RowSlots rs{0, 0};
+  if (rank < n) {
+    row = order != nullptr ? order[rank] : static_cast<int>(rank);
+    rs = find_row(buckets, inv_perm[row]);
+  }
+  const int32_t* nrow = nbr + rs.slot;
+  const float* wrow = w + rs.slot;
+
+  float acc[kMaxF];
+#pragma unroll
+  for (int c = 0; c < kMaxF; ++c) acc[c] = 0.0f;
+  for (int d0 = 0; d0 < rs.width; d0 += kStep) {
+    int j[kSlotsUnroll];
+    float wv[kSlotsUnroll];
+#pragma unroll
+    for (int u = 0; u < kSlotsUnroll; ++u) {
+      const int d = d0 + u * kGroup + g;
+      const bool in_row = d < rs.width;
+      j[u] = static_cast<int>(load32_if(nrow + d, in_row));
+      wv[u] = FeatureIo<T>::round(
+          __uint_as_float(load32_if(wrow + d, in_row)));
+      // an index outside [0, nx) contributes nothing (j = 0, a safe row)
+      const bool inside = j[u] >= 0 && j[u] < nx;
+      wv[u] = inside ? wv[u] : 0.0f;
+      j[u] = inside ? j[u] : 0;
+    }
+    float v[kSlotsUnroll][kMaxF];
+#pragma unroll
+    for (int u = 0; u < kSlotsUnroll; ++u) {
+      const T* xr = x + static_cast<int64_t>(j[u]) * f;
+#pragma unroll
+      for (int c = 0; c < kMaxF; ++c) {
+        v[u][c] = load_feature_if(xr + c, wv[u] != 0.0f && c < f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSlotsUnroll; ++u) {
+#pragma unroll
+      for (int c = 0; c < kMaxF; ++c) acc[c] = fmaf(wv[u], v[u][c], acc[c]);
+    }
+  }
+#pragma unroll
+  for (int off = kGroup / 2; off > 0; off /= 2) {
+#pragma unroll
+    for (int c = 0; c < kMaxF; ++c) {
+      acc[c] += __shfl_xor_sync(kFullMask, acc[c], off);
+    }
+  }
+  if (rank < n) {
+    T* orow = out + static_cast<int64_t>(row) * f;
+#pragma unroll
+    for (int c = 0; c < kMaxF; ++c) {
+      if (c % kGroup == g && c < f) FeatureIo<T>::store(orow + c, acc[c]);
+    }
+  }
+}
+
 // Wide rows: one warp per (output row, tile of 32 lanes x 16 bytes). The
 // warp walks its row's slots once; each slot is one coalesced 512-byte read
 // of x, and kUnroll of them are issued, predicated and without a branch,
@@ -270,22 +394,68 @@ spmm_bucketed_wide_kernel(const T* __restrict__ x,
   }
 }
 
-// The warps the current device holds at once (132 SMs x 64 on an H100), read
-// once; 0 if the device cannot be asked.
-int64_t resident_warps() {
-  static const int64_t warps = [] {
-    int device = 0, sms = 0, threads = 0;
-    if (cudaGetDevice(&device) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-            cudaSuccess ||
-        cudaDeviceGetAttribute(&threads,
-                               cudaDevAttrMaxThreadsPerMultiProcessor,
-                               device) != cudaSuccess) {
-      return int64_t{0};
-    }
-    return static_cast<int64_t>(sms) * (threads / kWarp);
-  }();
-  return warps;
+// The slot kernel at kGroup lanes a row. F = 1, the degree pass, has an
+// instance of its own, which holds fewer registers than one for up to
+// kSlotsMaxRowBytes' worth of features.
+template <typename T, int kGroup>
+void launch_slots_group(const T* x, const int32_t* inv_perm,
+                        const int32_t* order, const int32_t* nbr,
+                        const float* w, T* out, int64_t n, int nx, int f,
+                        const Buckets& buckets, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kWarp / kGroup * kWarpsPerBlock;
+  constexpr int kMaxF = static_cast<int>(kSlotsMaxRowBytes / sizeof(T));
+  const unsigned blocks =
+      static_cast<unsigned>((n + kRowsPerBlock - 1) / kRowsPerBlock);
+  const int ni = static_cast<int>(n);
+  if (f == 1) {
+    spmm_bucketed_slots_kernel<T, kGroup, 1>
+        <<<blocks, kWarp * kWarpsPerBlock, 0, stream>>>(
+            x, inv_perm, order, nbr, w, out, ni, nx, f, buckets);
+  } else {
+    spmm_bucketed_slots_kernel<T, kGroup, kMaxF>
+        <<<blocks, kWarp * kWarpsPerBlock, 0, stream>>>(
+            x, inv_perm, order, nbr, w, out, ni, nx, f, buckets);
+  }
+}
+
+// Rows narrower than 16 bytes: the slot kernel, its group sized from the
+// widest bucket that holds rows (see kSlotsUnroll).
+template <typename T>
+int launch_slots(const T* x, const int32_t* inv_perm, const int32_t* order,
+                 const int32_t* nbr, const float* w, T* out, int64_t n,
+                 int nx, int f, const Buckets& buckets,
+                 cudaStream_t stream) {
+  int widest = 0;
+  for (int b = 0; b < buckets.count; ++b) {
+    const int rows = buckets.row_end[b] - (b > 0 ? buckets.row_end[b - 1] : 0);
+    if (rows > 0 && buckets.width[b] > widest) widest = buckets.width[b];
+  }
+  int group = kSlotsMinGroup;
+  if (n <= resident_warps()) {
+    while (group < kWarp && group * kSlotsUnroll < widest) group *= 2;
+  }
+  switch (group) {
+    case 2:
+      launch_slots_group<T, 2>(x, inv_perm, order, nbr, w, out, n, nx, f,
+                               buckets, stream);
+      break;
+    case 4:
+      launch_slots_group<T, 4>(x, inv_perm, order, nbr, w, out, n, nx, f,
+                               buckets, stream);
+      break;
+    case 8:
+      launch_slots_group<T, 8>(x, inv_perm, order, nbr, w, out, n, nx, f,
+                               buckets, stream);
+      break;
+    case 16:
+      launch_slots_group<T, 16>(x, inv_perm, order, nbr, w, out, n, nx, f,
+                                buckets, stream);
+      break;
+    default:
+      launch_slots_group<T, 32>(x, inv_perm, order, nbr, w, out, n, nx, f,
+                                buckets, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -297,9 +467,14 @@ int launch(const void* x, const int32_t* inv_perm, const int32_t* order,
   T* ot = static_cast<T*>(out);
   const int ni = static_cast<int>(n), nxi = static_cast<int>(nx),
             fi = static_cast<int>(f);
-  // Dispatch by shape (see kWideMinRowBytes). Rows of whole 16-byte groups
-  // on 16-byte boundaries that are wide enough take the wide kernel; every
-  // other shape the warp-per-row kernel, in pairs where it can.
+  // Dispatch by shape (see kSlotsMaxRowBytes and kWideMinRowBytes). Rows
+  // narrower than 16 bytes take the slot kernel; rows of whole 16-byte groups
+  // on 16-byte boundaries that are wide enough the wide kernel; every other
+  // shape the warp-per-row kernel, in pairs where it can.
+  if (f * static_cast<int64_t>(sizeof(T)) <= kSlotsMaxRowBytes) {
+    return launch_slots<T>(xt, inv_perm, order, nbr, w, ot, n, nxi, fi,
+                           buckets, stream);
+  }
   const int64_t wide_min = n <= resident_warps() ? kWideMinRowBytesFewRows
                                                  : kWideMinRowBytes;
   if (wide_aligned(f, sizeof(T), wide_min, {x, out})) {

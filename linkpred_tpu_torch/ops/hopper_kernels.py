@@ -14,8 +14,26 @@ kernel; `LAUNCHES_BY_WIDTH` counts the same launches by feature width.
 `spmm_ell_auto` and `sddmm_auto` are the reference's dispatch entries: thin
 calls of K1 and K2 that build the kernels' operands.
 
-K1 and K3 choose between a warp-per-row kernel and a wide-row kernel by the
-shape and alignment of `x` inside their launch functions.
+K1 and K3 choose a kernel by the shape and alignment of `x` (and K1 by the
+slot count D too) inside their launch functions:
+
+    K1  packed     rows of 1-32 whole 16-byte groups when D <= 32, or at most
+                   4 groups, or more rows than the card holds warps and at
+                   most 16 groups: a warp per row, G lanes a slot, 32 / G
+                   slots gathered at once
+        wide       other rows of whole 16-byte groups, 64 bytes or more: a
+                   block per (row, 128-column tile), its warps sharing the
+                   slots
+        warp/row   any other shape
+    K3  slot       rows under 16 bytes (F <= 3 f32, <= 7 bf16): a group of
+                   lanes per row, one lane per slot, a shuffle tree per row
+        wide       rows of whole 16-byte groups, 256 bytes or more (128 when
+                   the card holds every output row at once): a warp per
+                   (row, 512-byte tile)
+        warp/row   any other shape, lanes across F
+
+Every path sums in a fixed order, so two launches on the same inputs agree
+bit for bit.
 """
 
 from __future__ import annotations

@@ -4,6 +4,9 @@ the TwoWL slice (K1 on the 1-WL aggregation, K3 on the paired 2-WL
 composed gather-sum, single-trial and trial-major), the GCN slice (K3,
 K2), and SEAL (no kernel: DRNL on the card against the C++ plane, a DGCNN
 step on the card against the CPU, and the dispatch entries of K1 and K2).
+Each kernel path that K1 and K3 choose by shape is held to the plain
+version, the narrow ones too (K3's slot kernel for rows under 16 bytes,
+K1's packed kernel), and two launches of those agree bit for bit.
 
 Every test here carries the `cuda` marker and skips without a card. The file
 imports no JAX, so it also runs on a machine with a card and no JAX:
@@ -538,6 +541,99 @@ def test_spmm_ell_wide_rows(cuda, f):
         assert torch.isfinite(got).all() and (got[::3] == 0).all()
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=5e-5)
     assert hk.LAUNCHES["spmm_ell"] == before + 2
+
+
+# ---------------------------------------------------------------------------
+# narrow rows: K3's slot kernel (rows under 16 bytes) and K1's packed kernel
+# (slot matrices of at most 32 columns)
+# ---------------------------------------------------------------------------
+
+
+def _narrow_layout(cuda, width1_rows=40, nx=400, seed=0):
+    """K3 operands over buckets of widths 1, 7, 31, 33 and 130, trailing
+    pads (index 0, weight 0), zero weights and indices outside [0, nx)
+    among the slots, an empty bucket, and ten output rows mapped to the
+    zero row (degree 0). With few rows the slot kernel sizes its group to
+    the widest bucket (32 lanes); with `width1_rows` = 9,000 the rows
+    outnumber the warps an H100 holds, the group is 2 lanes and the wide
+    rows take several rounds. Returns (inv_perm, shapes, nbr, w, order)."""
+    rng = np.random.default_rng(seed)
+    shapes = ((width1_rows, 1), (30, 7), (0, 8), (20, 31), (12, 33),
+              (5, 130))
+    nbr, w = [], []
+    for rows, width in shapes:
+        n_ = rng.integers(-2, nx + 3, (rows, width)).astype(np.int32)
+        w_ = rng.standard_normal((rows, width)).astype(np.float32)
+        w_[rng.random((rows, width)) < 0.1] = 0.0
+        live = rng.integers(1, width + 1, rows)
+        pad = np.arange(width)[None, :] >= live[:, None]
+        n_[pad] = 0
+        w_[pad | (n_ == 0)] = 0.0  # row 0 is named by weight-0 slots only
+        nbr.append(n_.ravel())
+        w.append(w_.ravel())
+    concat = sum(r for r, _ in shapes)
+    inv_perm = rng.permutation(np.concatenate(
+        [np.arange(concat), np.full(10, concat)])).astype(np.int32)
+    order = hk.launch_order(inv_perm)
+    return (torch.from_numpy(inv_perm).to(cuda), shapes,
+            torch.from_numpy(np.concatenate(nbr)).to(cuda),
+            torch.from_numpy(np.concatenate(w)).to(cuda),
+            torch.from_numpy(order).to(cuda))
+
+
+@pytest.mark.parametrize("width1_rows", [40, 9000])
+@pytest.mark.parametrize("f,dtype", [(1, torch.float32), (2, torch.float32),
+                                     (3, torch.float32),
+                                     (2, torch.bfloat16)], ids=str)
+def test_spmm_bucketed_slot_kernel(cuda, f, dtype, width1_rows):
+    """K3 on rows under 16 bytes, with and without the launch order and
+    from storage offset by one element, against the plain version; a pad
+    that points at a NaN row contributes nothing and degree-0 rows are 0;
+    two launches agree bit for bit."""
+    k3 = _narrow_layout(cuda, width1_rows)
+    nx = 400
+    x = _x(nx, f, dtype, cuda, f)
+    x[0] = float("nan")
+    inv_perm, shapes = k3[:2]
+    ref = hk.spmm_bucketed_reference(x, *k3)
+    assert torch.isfinite(ref).all()
+    zero_rows = inv_perm == sum(r for r, _ in shapes)
+    before = hk.LAUNCHES["spmm_bucketed"]
+    runs = [hk.spmm_bucketed(x, *k3), hk.spmm_bucketed(x, *k3),
+            hk.spmm_bucketed(x, *k3[:4]), hk.spmm_bucketed(_offset_copy(x), *k3)]
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["spmm_bucketed"] == before + 4
+    for got in runs:
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        assert not got[zero_rows].any()
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **FEATURE_TOL[dtype])
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("f", [4, 16, 24, 28])
+@pytest.mark.parametrize("d", [1, 8, 32, 33])
+def test_spmm_ell_packed_kernel(cuda, d, f):
+    """K1 on slot matrices of 1 to 33 columns (33 leaves the packed
+    kernel), with indices outside [0, NX) and zero-weight slots that name a
+    NaN row, against the plain version; two launches agree bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 100 + f)
+    nx, m_ = 600, 5000
+    nbr = torch.randint(-2, nx + 3, (m_, d), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    w = torch.randn((m_, d), generator=gen, device=cuda)
+    w[::3] = 0.0
+    w[nbr == 0] = 0.0
+    x = _x(nx, f, torch.float32, cuda, f)
+    x[0] = float("nan")
+    ref = hk.spmm_ell_reference(nbr, w, x)
+    before = hk.LAUNCHES["spmm_ell"]
+    runs = [hk.spmm_ell(nbr, w, x) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["spmm_ell"] == before + 2
+    assert torch.isfinite(runs[0]).all() and (runs[0][::3] == 0).all()
+    torch.testing.assert_close(runs[0], ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(runs[0], runs[1])
 
 
 def test_segment_sum_ell_trial_major_on_the_card(cuda):

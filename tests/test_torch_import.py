@@ -420,6 +420,28 @@ def test_no_card_raises(monkeypatch, tmp_path):
     assert list(tmp_path.iterdir()) == []
 
 
+def test_kernel_turns_needs_a_card_and_loads_no_jax():
+    """`kernel_turns.py` imports nothing of JAX or the JAX package, refuses
+    to run without a card before it prints a measurement, and calls
+    `compare` without `--other` an argument error."""
+    _run_without_jax(textwrap.dedent("""
+        import torch
+        torch.cuda.is_available = lambda: False
+        import kernel_turns
+        assert_port_stands_alone()
+        for argv, expect in ((["--groups", "check"], "no CUDA device"),
+                             (["--groups", "compare"], 2)):
+            sys.argv = ["kernel_turns.py", *argv]
+            try:
+                kernel_turns.main()
+            except SystemExit as e:
+                assert e.code == expect or expect in str(e.code), e.code
+            else:
+                raise AssertionError(argv)
+        print('JAX-FREE OK')
+    """))
+
+
 def test_distributed_node2vec_defaults_to_the_card(monkeypatch):
     """Without a card, the SGNS replay and a mesh of the default device type
     refuse to run rather than fall back to the CPU."""

@@ -108,10 +108,14 @@ def _dense_ell(nbr, w, x):
 
 class TestSpmmEll:
     @pytest.mark.parametrize("n,d,f,weighted", [(70, 9, 20, False),
-                                                (33, 5, 8, True)])
+                                                (33, 5, 8, True),
+                                                (48, 32, 16, True),
+                                                (40, 32, 24, False)])
     def test_reference_matches_pallas(self, n, d, f, weighted):
-        """The `TestPallasSpMM` shapes: the plain version against the JAX
-        package's Pallas kernel in interpret mode."""
+        """The `TestPallasSpMM` shapes, and slot matrices of 32 columns at
+        F = 16 and 24 (the 50k-node TwoWL's 1-WL shapes, cut in rows): the
+        plain version against the JAX package's Pallas kernel in interpret
+        mode."""
         rng = np.random.default_rng(n)
         nbr = rng.integers(0, n, (n, d)).astype(np.int32)
         w = (rng.random((n, d)) if weighted
