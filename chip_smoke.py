@@ -36,7 +36,10 @@ and the collab graph, `train_sgns_mesh` at the logistic family's config and
 at 235,000 x 128, each held to its one-card or one-process counterpart),
 `torchrun --nproc-per-node 1 ... scale --family gcn` on NCCL, and
 `train_sharded`'s, `train_sgns_mesh`'s and the routed walk's collectives
-over a one-rank NCCL mesh). One line per phase; then one JSON line of kernel results, the card's name and power
+over a one-rank NCCL mesh). One line per phase; every timing of K3 names
+the device kernel the profiler saw for the timed call (`device_kernel`:
+which of K3's four kernels the shape took, and at what group and rows a
+warp). Then one JSON line of kernel results, the card's name and power
 limit as nvidia-smi gives them, and last `{"ok": true, "device": {...}}`.
 Nothing catches a failed phase: without a card, or without the rest of the
 repository, it raises and exits non-zero before printing any result. With
@@ -256,6 +259,42 @@ def kernel_ms(fn, iters=50):
             return (pair[0] + t) / 2
     raise AssertionError(f"kernel_ms: no two of eight captures agree: {seen}; "
                          f"incomplete captures: {dropped}")
+
+
+def device_kernels(fn, calls=10):
+    """The kernels the card ran for `fn`, as torch.profiler names them
+    (template arguments kept, argument lists cut), so a timing line shows
+    which of a wrapper's kernels its shape took. As `profiled_ms` does, the
+    capture first launches `PROFILE_LEAD` small kernels that the profiler
+    may lose, idles, then makes `calls` calls: the names are those of the
+    group of events after the idle gap."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = torch.zeros(32, device="cuda")
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                lead.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.time_range.elapsed_us(),
+                         e.name) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        names, last_end = set(), None
+        for start, duration, name in events:
+            if last_end is not None and start - last_end > PROFILE_PAD_S * 5e5:
+                names = set()
+            names.add(name.removeprefix("void ").replace(
+                "(anonymous namespace)::", "").split("(")[0])
+            last_end = start + duration
+        if names:
+            return sorted(names)
+    raise AssertionError("device_kernels: no capture held the calls")
 
 
 def step_profile(run, steps=10):
@@ -634,7 +673,8 @@ def gcn_phases(dev, hk):
                           lambda: hk.spmm_bucketed(x, *ops)),
             spmm_bucketed_work(x, *ops), hk, dev, library, reason,
             launches_per_step=rates.get(f"spmm_bucketed F={f}", 0))
-        phase("h_k3_time", case=f"slice x{f} bf16", **k3_time[f])
+        phase("h_k3_time", case=f"slice x{f} bf16", **k3_time[f],
+              device_kernel=device_kernels(lambda: hk.spmm_bucketed(x, *ops)))
 
     # (i) K2 against sddmm_reference: a training step's 2 x 8,192 pairs and
     # the 51,200 test pairs at F = 128, then ragged cases
@@ -675,15 +715,16 @@ def gcn_phases(dev, hk):
 
     # (j) the main path: `train_collab` at the full config (GCN_SEEDS).
     # The launch counts are zeroed just before and read just after each run.
-    launches = None
+    launches = by_width = None
     for seed in GCN_SEEDS:
         for k in hk.LAUNCHES:
             hk.LAUNCHES[k] = 0
+        hk.LAUNCHES_BY_WIDTH.clear()
         res = gs.train_collab(dataclasses.replace(cfg, seed=seed), device=dev,
                               verbose=False)
         counts = dict(hk.LAUNCHES)
         if seed == 0:
-            launches = counts
+            launches, by_width = counts, dict(hk.LAUNCHES_BY_WIDTH)
         assert set(res) == GCN_KEYS, sorted(res)
         assert res["loss_decreased"], res
         assert res["test_auc"] >= GCN_AUC_FLOOR, res
@@ -749,10 +790,13 @@ def gcn_phases(dev, hk):
             "plain": lambda: hk.spmm_bucketed_reference(x, *ops),
             "library": library})
         line["bound_ms"] = bound(spmm_bucketed_work(x, *ops))["bound_ms"]
+        line["device_kernel"] = device_kernels(
+            lambda: hk.spmm_bucketed(x, *ops))
         phase("s_k_width_scan", f=f, dtype="bfloat16", layout="gcn slice",
               library=reason, device_ms={"k3": line})
 
-    return {"launches": launches, "k3_err": k3_err, "k3_time": k3_time[128],
+    return {"launches": launches, "by_width": by_width, "k3_err": k3_err,
+            "k3_time": k3_time,
             "k2_err": k2_err, "k2_time": k2_time, "graph": g,
             "problem": problem}
 
@@ -835,11 +879,12 @@ def sweep_phases(dev, hk, data, run, trn, rates):
         phase("m_k3_check", case=name, x=list(x.shape),
               buckets=[list(b) for b in ops.k3[1]],
               slots=int(ops.k3[2].shape[0]), max_abs_err=err)
-    # both of K3's kernels (rows of 16-byte groups take the wide one: from
-    # 128 bytes here, where the card holds all output rows at once; F = 34
-    # takes the warp-per-row kernel in pairs, F = 1 in scalars) at every
-    # width the paths launch it at, forward and transpose, also from storage
-    # that is offset by one element and on the bent operands of
+    # K3's kernels (rows of whole 16-byte groups take the packed kernel up
+    # to 256 bytes, one row a warp here, where the card holds all output
+    # rows at once, and the wide one above; F = 34 takes the warp-per-row
+    # kernel in pairs, F = 1 the slot kernel) at every width the paths
+    # launch it at, forward and transpose, also from storage that is offset
+    # by one element (the warp-per-row kernel) and on the bent operands of
     # edge_case_operands
     k3_widths = sorted({32, 34, 96, 100, 768, 1024, 1028}
                        | path_widths["spmm_bucketed"])
@@ -893,7 +938,8 @@ def sweep_phases(dev, hk, data, run, trn, rates):
             launches_per_epoch={
                 p: rates[p].get(f"spmm_bucketed F={f}", 0) for p in paths})
         phase("m_k3_time", case=f"train fwd F={f}", x=list(x.shape),
-              **k3_times[f],
+              **k3_times[f], device_kernel=device_kernels(
+                  lambda: hk.spmm_bucketed(x, *fwd.k3)),
               bucket_sum=time_in_turns(
                   lambda: seg._bucket_sum(x, fwd.inv_perm, fwd.buckets),
                   lambda: hk.spmm_bucketed(x, *fwd.k3)))
@@ -1133,6 +1179,8 @@ def sweep_phases(dev, hk, data, run, trn, rates):
                 "library": library})
             line[name]["bound_ms"] = bound(
                 spmm_bucketed_work(x, *ops.k3))["bound_ms"]
+            line[name]["device_kernel"] = device_kernels(
+                lambda: hk.spmm_bucketed(x, *ops.k3))
         args = (trn.msg_slots, trn.msg_sweight, xm)
         library, reason = library_spmm(lambda: ell_csr(*args[:2], S), xm,
                                        hk.spmm_ell(*args))
@@ -1429,6 +1477,8 @@ def scale_phases(dev, hk):
             spmm_bucketed_work(x, *ops.k3), hk, dev, library, reason,
             launches_per_epoch=rates.get(f"spmm_bucketed F={f}", 0))
         phase("x_k3_scale_time", case=case, **k3_time[case],
+              device_kernel=device_kernels(
+                  lambda: hk.spmm_bucketed(x, *ops.k3)),
               bucket_sum=time_in_turns(
                   lambda: seg._bucket_sum(x, ops.inv_perm, ops.buckets),
                   lambda: hk.spmm_bucketed(x, *ops.k3)))
@@ -1955,11 +2005,11 @@ def _halo_table_rows(lay, k):
 def par_ops_rank(rank, world, dev, grp, inputs, save_dir):
     """par_ops on this rank: every sharded SpMM at collab scale, at both
     widths of the GCN's aggregations (F = 64, the embedding, and F = 128,
-    the hidden layer: at 58,750 output rows a rank K3 runs its warp-per-row
-    kernel on the 128-byte rows of F = 64 bf16 and its wide kernel on the
-    others), against the one-rank K3 and against K3's plain version; rank 0
-    saves its bf16 operands of each width for the timings. Returns errors
-    and K3 launches."""
+    the hidden layer: at 58,750 output rows a rank K3 runs its packed
+    kernel at both widths in both types, two rows a warp, where the one-rank
+    layout's 235,000 rows take four or two), against the one-rank K3 and
+    against K3's plain version; rank 0 saves its bf16 operands of each
+    width for the timings. Returns errors and K3 launches."""
     from linkpred_tpu_torch.ops import hopper_kernels as hk
     from linkpred_tpu_torch.parallel import collectives as C
     from linkpred_tpu_torch.parallel import halo as H
@@ -2495,6 +2545,8 @@ def parallel_phases(dev, hk, problem=None, walk_rates=None):
                               lambda: hk.spmm_bucketed(x, *ops)),
                 spmm_bucketed_work(x, *ops), hk, dev, library, reason)
             phase("par_ops_time", kernel="K3", path=name, x=list(x.shape),
+                  device_kernel=device_kernels(
+                      lambda: hk.spmm_bucketed(x, *ops)),
                   output_rows=int(ops[0].shape[0]),
                   slots=int(ops[2].shape[0]), **times[f"{name} F={f}"])
     src, dst, table = (a.to(dev) for a in saved["sddmm"])
@@ -3224,6 +3276,11 @@ def main():
             sweep["k3_times"][32 * SWEEP_TRIALS]),
         row("sddmm", "gcn collab", "sddmm.cu", 144, gcn["launches"]["sddmm"],
             gcn["k2_err"], gcn["k2_time"]),
+        # K3 at the GCN's two widths, each with its width's launches in
+        # the collab run (phase j) and its time on that layout (phase h)
+        *[row("spmm_bucketed", f"gcn collab F={f} bf16", "spmm_bucketed.cu",
+              249, gcn["by_width"][f"spmm_bucketed F={f}"], gcn["k3_err"],
+              gcn["k3_time"][f]) for f in (64, 128)],
         row("spmm_ell", "twowl scale", "spmm_ell.cu", 68,
             scale["launches"]["spmm_ell"], scale["k1_err"],
             scale["k1_times"][24]),
@@ -3239,6 +3296,10 @@ def main():
         row("spmm_ell", f"twowl sweep F={16 * SWEEP_TRIALS}", "spmm_ell.cu",
             68, sweep["by_width"][f"spmm_ell F={16 * SWEEP_TRIALS}"],
             sweep["k1_err"], sweep["k1_times"][16 * SWEEP_TRIALS]),
+        row("spmm_bucketed", "twowl scale bwd F=32 bf16", "spmm_bucketed.cu",
+            249, scale["by_width"]["spmm_bucketed F=32"],
+            scale["k3_err"]["bf16"],
+            scale["k3_times"]["scale bwd F=32 bfloat16"]),
         row("spmm_bucketed", "twowl scale F=1 f32", "spmm_bucketed.cu", 249,
             scale["by_width"]["spmm_bucketed F=1"], scale["k3_err"]["f32"],
             scale["k3_times"]["scale fwd F=1 float32"]),

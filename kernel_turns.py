@@ -6,7 +6,7 @@ TwoWL and GCN paths (the numbers behind the dispatch thresholds written in
 checkout's kernels against another build of their sources at every shape of
 the kernel table in `PERF.md`.
 
-    python3 kernel_turns.py --groups check,paths
+    python3 kernel_turns.py --groups check,paths,packed
     python3 kernel_turns.py --groups compare \\
         --other build/parent/linkpred_tpu_torch/csrc
 
@@ -24,10 +24,15 @@ a file too.
 
 The forced paths come from copies of this checkout's K3 and K1 sources
 under `build/kernel_turns/`, each with an entry point appended that launches
-one kernel by name (`FORCE_K3`, `FORCE_K1`), and, for K3's slot kernel, one
-copy for each value of `kSlotsUnroll` in `--unrolls`. Needs a card and
-`nvcc`; the data are the smoke's (fb-pages-food's TwoWL splits, TwoWL at 50k
-nodes, the collab-scale GCN graph and, for `compare`, its four-rank
+one kernel by name (`FORCE_K3`, `FORCE_K1`), and one K3 copy for each value
+of `kSlotsUnroll` in `--unrolls` (the slot kernel) and of `kPackedUnroll`
+in `--packed-unrolls` (the packed kernel). Groups: `check` holds every
+forced kernel against the plain version; `paths` times K3's slot kernel and
+K1's three kernels at the narrow shapes; `packed` times K3's packed kernel
+at each rows-a-warp beside the wide and warp-per-row kernels, on rows of
+16-256 bytes; `compare` needs `--other`. Needs a card and `nvcc`; the data
+are the smoke's (fb-pages-food's TwoWL splits, TwoWL at 50k nodes, the
+collab-scale GCN graph and, for `packed` and `compare`, its four-rank
 layouts), built on the host first.
 """
 
@@ -50,59 +55,120 @@ from linkpred_tpu_torch.ops import hopper_kernels as hk
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "linkpred_tpu_torch" / "csrc"
 WORK = ROOT / "build" / "kernel_turns"
-GROUPS = ("check", "paths", "compare")
+GROUPS = ("check", "paths", "packed", "compare")
 
-# kernel: 0 the warp-per-row kernel (one feature a lane), else the slot
-# kernel with `kernel` lanes a row (rows under 16 bytes only)
-FORCE_K3 = r'''
-extern "C" int force_k3(int dtype, int kernel, const void* x,
-                        const int32_t* inv_perm, const int32_t* order,
-                        const int32_t* nbr, const float* w, void* out,
-                        int64_t n, int64_t nx, int64_t f, int64_t n_buckets,
-                        const int64_t* shapes, void* stream) {
+# kernel: 0 the warp-per-row kernel (feature pairs a lane where the rows
+# allow them, as the dispatch takes it), 1 the slot kernel at `group` lanes a
+# row (rows under 16 bytes), 2 the wide kernel, 3 the packed kernel at
+# `group` lanes a slot and `rows` rows a warp (rows of whole 16-byte groups,
+# `group` at least their count). Returns cudaErrorInvalidValue for a shape
+# the kernel does not take.
+FORCE_K3 = r"""
+namespace {
+template <typename T>
+int force_packed(int group, int rows, const T* x, const int32_t* inv_perm,
+                 const int32_t* order, const int32_t* nbr, const float* w,
+                 T* out, int64_t n, int nx, int f, const Buckets& buckets,
+                 cudaStream_t s) {
+  if (!wide_aligned(f, sizeof(T), 16, {x, out}) ||
+      static_cast<int64_t>(group) * 16 < f * static_cast<int64_t>(sizeof(T))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define PACKED(G, R)                                                        \
+  if (group == G && rows == R) {                                            \
+    launch_packed_rows<T, G, R>(x, inv_perm, order, nbr, w, out, n, nx, f,  \
+                                buckets, s);                                \
+    return static_cast<int>(cudaGetLastError());                           \
+  }
+  PACKED(1, 1) PACKED(1, 2) PACKED(1, 4) PACKED(1, 8) PACKED(1, 16)
+  PACKED(1, 32)
+  PACKED(2, 1) PACKED(2, 2) PACKED(2, 4) PACKED(2, 8) PACKED(2, 16)
+  PACKED(4, 1) PACKED(4, 2) PACKED(4, 4) PACKED(4, 8)
+  PACKED(8, 1) PACKED(8, 2) PACKED(8, 4)
+  PACKED(16, 1) PACKED(16, 2)
+#undef PACKED
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int force(int kernel, int group, int rows, const T* x,
+          const int32_t* inv_perm, const int32_t* order, const int32_t* nbr,
+          const float* w, T* out, int64_t n, int nx, int f,
+          const Buckets& buckets, cudaStream_t s) {
+  const int ni = static_cast<int>(n);
+  if (kernel == 0) {
+    const unsigned blocks =
+        static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    if (pairs_aligned(f, sizeof(T), {x, out})) {
+      spmm_bucketed_kernel<T, 2><<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
+          x, inv_perm, order, nbr, w, out, ni, nx, f, buckets);
+    } else {
+      spmm_bucketed_kernel<T, 1><<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
+          x, inv_perm, order, nbr, w, out, ni, nx, f, buckets);
+    }
+  } else if (kernel == 1) {
+    switch (group) {
+      case 2: launch_slots_group<T, 2>(x, inv_perm, order, nbr, w, out, n,
+                                       nx, f, buckets, s); break;
+      case 4: launch_slots_group<T, 4>(x, inv_perm, order, nbr, w, out, n,
+                                       nx, f, buckets, s); break;
+      case 8: launch_slots_group<T, 8>(x, inv_perm, order, nbr, w, out, n,
+                                       nx, f, buckets, s); break;
+      case 16: launch_slots_group<T, 16>(x, inv_perm, order, nbr, w, out, n,
+                                         nx, f, buckets, s); break;
+      case 32: launch_slots_group<T, 32>(x, inv_perm, order, nbr, w, out, n,
+                                         nx, f, buckets, s); break;
+      default: launch_slots_group<T, 1>(x, inv_perm, order, nbr, w, out, n,
+                                        nx, f, buckets, s);
+    }
+  } else if (kernel == 2) {
+    if (!wide_aligned(f, sizeof(T), 16, {x, out})) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    constexpr int kTile = kWarp * FeatureIo<T>::kWide;
+    const int64_t tiles = (f + kTile - 1) / kTile;
+    const int64_t blocks = (n * tiles + kWideWarps - 1) / kWideWarps;
+    spmm_bucketed_wide_kernel<T>
+        <<<static_cast<unsigned>(blocks), kWarp * kWideWarps, 0, s>>>(
+            x, inv_perm, order, nbr, w, out, ni, nx, f,
+            static_cast<int>(tiles), buckets);
+  } else {
+    return force_packed<T>(group, rows, x, inv_perm, order, nbr, w, out, n,
+                           nx, f, buckets, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+}  // namespace
+
+extern "C" int force_k3(int dtype, int kernel, int group, int rows,
+                        const void* x, const int32_t* inv_perm,
+                        const int32_t* order, const int32_t* nbr,
+                        const float* w, void* out, int64_t n, int64_t nx,
+                        int64_t f, int64_t n_buckets, const int64_t* shapes,
+                        void* stream) {
   Buckets buckets{};
   buckets.count = static_cast<int>(n_buckets);
-  int64_t rows = 0, slots = 0;
+  int64_t rows_ = 0, slots = 0;
   for (int b = 0; b < buckets.count; ++b) {
     buckets.slot0[b] = slots;
-    rows += shapes[2 * b];
+    rows_ += shapes[2 * b];
     slots += shapes[2 * b] * shapes[2 * b + 1];
-    buckets.row_end[b] = static_cast<int>(rows);
+    buckets.row_end[b] = static_cast<int>(rows_);
     buckets.width[b] = static_cast<int>(shapes[2 * b + 1]);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ni = static_cast<int>(n), nxi = static_cast<int>(nx),
-            fi = static_cast<int>(f);
-#define FORCE(T)                                                              \
-  {                                                                           \
-    const T* xt = static_cast<const T*>(x);                                   \
-    T* ot = static_cast<T*>(out);                                             \
-    if (kernel == 0) {                                                        \
-      const unsigned blocks =                                                 \
-          static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock);   \
-      spmm_bucketed_kernel<T, 1><<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(   \
-          xt, inv_perm, order, nbr, w, ot, ni, nxi, fi, buckets);             \
-    } else {                                                                  \
-      switch (kernel) {                                                       \
-        case 2: launch_slots_group<T, 2>(xt, inv_perm, order, nbr, w, ot, n,  \
-                                         nxi, fi, buckets, s); break;         \
-        case 4: launch_slots_group<T, 4>(xt, inv_perm, order, nbr, w, ot, n,  \
-                                         nxi, fi, buckets, s); break;         \
-        case 8: launch_slots_group<T, 8>(xt, inv_perm, order, nbr, w, ot, n,  \
-                                         nxi, fi, buckets, s); break;         \
-        case 16: launch_slots_group<T, 16>(xt, inv_perm, order, nbr, w, ot,   \
-                                           n, nxi, fi, buckets, s); break;    \
-        case 32: launch_slots_group<T, 32>(xt, inv_perm, order, nbr, w, ot,   \
-                                           n, nxi, fi, buckets, s); break;    \
-        default: launch_slots_group<T, 1>(xt, inv_perm, order, nbr, w, ot, n, \
-                                          nxi, fi, buckets, s);               \
-      }                                                                       \
-    }                                                                         \
+  const int nxi = static_cast<int>(nx), fi = static_cast<int>(f);
+  if (dtype == 0) {
+    return force<float>(kernel, group, rows, static_cast<const float*>(x),
+                        inv_perm, order, nbr, w, static_cast<float*>(out), n,
+                        nxi, fi, buckets, s);
   }
-  if (dtype == 0) FORCE(float) else FORCE(__nv_bfloat16)
-  return static_cast<int>(cudaGetLastError());
+  return force<__nv_bfloat16>(
+      kernel, group, rows, static_cast<const __nv_bfloat16*>(x), inv_perm,
+      order, nbr, w, static_cast<__nv_bfloat16*>(out), n, nxi, fi, buckets,
+      s);
 }
-'''
+"""
 
 # kernel: 0 the warp-per-row kernel, 1 the wide kernel, 2 the packed kernel
 FORCE_K1 = r'''
@@ -137,6 +203,20 @@ extern "C" int force_k1(int kernel, const int32_t* nbr, const float* w,
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 UNROLL_LINE = "constexpr int kSlotsUnroll = {};"
+PACKED_UNROLL_LINE = "constexpr int kPackedUnroll = {};"
+# rows of 16-256 bytes, the widths at which K3's packed kernel competes
+PACKED_WIDTHS = tuple((f, torch.bfloat16) for f in (8, 16, 32, 64, 128)) + \
+    tuple((f, torch.float32) for f in (4, 8, 16, 32, 64))
+
+
+def packed_variants(f, dtype):
+    """K3's packed kernel at `f` features of `dtype`: label -> (kernel,
+    group, rows) for `force_k3`, its group the row's 16-byte groups rounded
+    up to a power of two, at each rows-a-warp that leaves a row a group."""
+    groups = f * torch.tensor([], dtype=dtype).element_size() // 16
+    group = 1 << max(groups - 1, 0).bit_length()
+    return {f"packed G={group} rows={r}": (3, group, r)
+            for r in (1, 2, 4, 8, 16, 32) if group * r <= 32}
 
 
 class Out:
@@ -154,19 +234,34 @@ class Out:
                 fh.write(line + "\n")
 
 
-def _nvcc(src: Path, out: Path) -> Path:
+def _nvcc(src: Path, out: Path) -> tuple[Path, str]:
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
                            str(out), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    return out
+    return out, proc.stdout + proc.stderr
 
 
-def build_variants(unrolls, other):
+def registers(log, part):
+    """Registers a thread of each kernel whose (mangled) name holds `part`,
+    from a ptxas report: name -> count."""
+    found, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if part in line else None
+        elif name is not None and "Used" in line and "registers" in line:
+            found[name] = int(line.split("Used")[1].split()[0])
+            name = None
+    return found
+
+
+def build_variants(unrolls, packed_unrolls, other):
     """The forced-path copies of this checkout's sources (one K3 copy per
-    unroll) and, with `other`, the other revision's K1, K3 and K2, all
-    built at once beside this checkout's own kernels. Returns name ->
-    loaded library with its entry point's types declared."""
+    slot-kernel unroll, one per other packed-kernel unroll) and, with
+    `other`, the other revision's K1, K3 and K2, all built at once beside
+    this checkout's own kernels. Returns (name -> loaded entry point with
+    its types declared, the default unrolls, name -> packed kernels'
+    registers a thread)."""
     src_dir, lib_dir = WORK / "src", WORK / "lib"
     src_dir.mkdir(parents=True, exist_ok=True)
     lib_dir.mkdir(parents=True, exist_ok=True)
@@ -174,12 +269,19 @@ def build_variants(unrolls, other):
         (CSRC / "feature_io.cuh").read_text())
     k3 = (CSRC / "spmm_bucketed.cu").read_text()
     default = next(u for u in range(1, 65) if UNROLL_LINE.format(u) in k3)
+    default_packed = next(u for u in range(1, 65)
+                          if PACKED_UNROLL_LINE.format(u) in k3)
     jobs = {}
     for u in unrolls:
         p = src_dir / f"k3_unroll{u}.cu"
         p.write_text(k3.replace(UNROLL_LINE.format(default),
                                 UNROLL_LINE.format(u)) + FORCE_K3)
         jobs[f"k3 unroll {u}"] = p
+    for u in set(packed_unrolls) - {default_packed}:
+        p = src_dir / f"k3_packed_unroll{u}.cu"
+        p.write_text(k3.replace(PACKED_UNROLL_LINE.format(default_packed),
+                                PACKED_UNROLL_LINE.format(u)) + FORCE_K3)
+        jobs[f"k3 packed unroll {u}"] = p
     p = src_dir / "k1.cu"
     p.write_text((CSRC / "spmm_ell.cu").read_text() + FORCE_K1)
     jobs["k1"] = p
@@ -191,13 +293,17 @@ def build_variants(unrolls, other):
                                             "sddmm", "empty_launch"))
         done = {k: pool.submit(_nvcc, src, lib_dir / f"{k.replace(' ', '_')}.so")
                 for k, src in jobs.items()}
-        libs = {k: ctypes.CDLL(str(f.result())) for k, f in done.items()}
+        built = {k: f.result() for k, f in done.items()}
         own.result()
+    libs = {k: ctypes.CDLL(str(path)) for k, (path, _) in built.items()}
+    regs = {k: registers(log, "packed") for k, (_, log) in built.items()
+            if k.startswith("k3")}
     entries = {}
-    for u in unrolls:
-        fn = libs[f"k3 unroll {u}"].force_k3
-        fn.argtypes = [_I32, _I32] + [_P] * 6 + [_I64] * 4 + [_P, _P]
-        entries[f"k3 unroll {u}"] = fn
+    for k in libs:
+        if k.startswith("k3"):
+            fn = libs[k].force_k3
+            fn.argtypes = [_I32] * 4 + [_P] * 6 + [_I64] * 4 + [_P, _P]
+            entries[k] = fn
     fn = libs["k1"].force_k1
     fn.argtypes = [_I32] + [_P] * 4 + [_I64] * 4 + [_P]
     entries["k1"] = fn
@@ -211,7 +317,7 @@ def build_variants(unrolls, other):
             entries[f"other {name}"] = fn
     for fn in entries.values():
         fn.restype = _I32
-    return entries, default
+    return entries, (default, default_packed), regs
 
 
 def _stream():
@@ -219,7 +325,8 @@ def _stream():
 
 
 def k3_call(fn, x, k3, kernel=None):
-    """K3 through `fn`: a public entry (`kernel` None) or `force_k3`."""
+    """K3 through `fn`: a public entry (`kernel` None) or `force_k3`, with
+    `kernel` its (kernel, group, rows)."""
     inv_perm, shapes, nbr, w = k3[:4]
     order = k3[4] if len(k3) > 4 else None
     n, (nx, f) = inv_perm.shape[0], x.shape
@@ -228,7 +335,7 @@ def k3_call(fn, x, k3, kernel=None):
     out = torch.empty((n, f), dtype=x.dtype, device=x.device)
     head = (hk._DTYPE_CODES[x.dtype],)
     if kernel is not None:
-        head += (kernel,)
+        head += tuple(kernel)
     rc = fn(*head, x.data_ptr(), inv_perm.data_ptr(),
             None if order is None else order.data_ptr(), nbr.data_ptr(),
             w.data_ptr(), out.data_ptr(), n, nx, f, len(shapes),
@@ -308,6 +415,8 @@ def main():
                              "the compare group")
     parser.add_argument("--unrolls", default="4,8,16",
                         help="values of K3's kSlotsUnroll to build")
+    parser.add_argument("--packed-unrolls", default="8",
+                        help="values of K3's kPackedUnroll to build")
     parser.add_argument("--out", default=None,
                         help="a file to append the JSON lines to")
     args = parser.parse_args()
@@ -327,11 +436,15 @@ def main():
                          capture_output=True, text=True).stdout.strip()
     unrolls = [int(u) for u in args.unrolls.split(",")]
     t0 = time.perf_counter()
-    entries, default_unroll = build_variants(unrolls, args.other)
+    packed_unrolls = [int(u) for u in args.packed_unrolls.split(",")]
+    entries, (default_unroll, default_packed), regs = build_variants(
+        unrolls, packed_unrolls, args.other)
     emit(step="build", device=smi, default_unroll=default_unroll,
+         default_packed_unroll=default_packed, packed_registers=regs,
          seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    k3_layouts, k1_layouts = layouts(dev, "compare" in groups)
+    k3_layouts, k1_layouts = layouts(
+        dev, "compare" in groups or "packed" in groups)
     emit(step="data", seconds=time.perf_counter() - t0)
     gen = torch.Generator(device=dev).manual_seed(0)
     tol = {torch.float32: cs.F32_TOL, torch.bfloat16: cs.BF16_TOL}
@@ -341,21 +454,40 @@ def main():
     def feats(rows, f, dtype=f32):
         return torch.randn((rows, f), generator=gen, device=dev).to(dtype)
 
-    def force3(u, kernel):
-        return lambda x, k3: k3_call(entries[f"k3 unroll {u}"], x, k3, kernel)
+    def force3(u, kernel, group=0, rows=1):
+        return lambda x, k3: k3_call(entries[f"k3 unroll {u}"], x, k3,
+                                     (kernel, group, rows))
+
+    def packed(f, dtype):
+        """The packed kernel's variants at `f` features of `dtype`, at
+        every packed unroll built: label -> callable(x, k3)."""
+        out = {}
+        for pu in packed_unrolls:
+            lib = (f"k3 unroll {default_unroll}" if pu == default_packed
+                   else f"k3 packed unroll {pu}")
+            for k, v in packed_variants(f, dtype).items():
+                label = k if pu == default_packed else f"{k} unroll {pu}"
+                out[label] = (lambda v=v, lib=lib: lambda x, k3: k3_call(
+                    entries[lib], x, k3, v))()
+        return out
 
     if "check" in groups:
         # every forced K3 and K1 kernel against the plain version
         for name, (k3, rows) in k3_layouts.items():
-            for f, dtype in ((1, f32), (3, f32), (7, bf16), (32, f32)):
+            for f, dtype in ((1, f32), (3, f32), (7, bf16), *PACKED_WIDTHS):
                 x = feats(rows, f, dtype)
                 ref = hk.spmm_bucketed_reference(x, *k3)
                 kernels = {"public": lambda x, k3: k3_call(
                     entries["this spmm_bucketed"], x, k3),
                            "warp per row": force3(unrolls[0], 0)}
-                for u in unrolls if f * x.element_size() < 16 else ():
-                    for g in slot_groups:
-                        kernels[f"slots G={g} unroll {u}"] = force3(u, g)
+                if f * x.element_size() < 16:
+                    for u in unrolls:
+                        for g in slot_groups:
+                            kernels[f"slots G={g} unroll {u}"] = force3(
+                                u, 1, g)
+                else:
+                    kernels["wide"] = force3(unrolls[0], 2)
+                    kernels.update(packed(f, dtype))
                 err = max(cs.check(f"{name} F={f} {k}", fn(x, k3), ref,
                                    tol[dtype]) for k, fn in kernels.items())
                 emit(step="check K3", layout=name, f=f, dtype=str(dtype),
@@ -383,7 +515,7 @@ def main():
             for u in unrolls:
                 for g in slot_groups:
                     fns[f"G={g} unroll {u}"] = (
-                        lambda u=u, g=g: force3(u, g)(x, k3))
+                        lambda u=u, g=g: force3(u, 1, g)(x, k3))
             mean, raw = turns(fns)
             emit(step="K3 slot kernel F=1 f32", layout=name, rows=rows,
                  buckets=[list(b) for b in k3[1]],
@@ -399,7 +531,7 @@ def main():
                        "warp per row": lambda: force3(default_unroll, 0)(
                            x, k3)}
                 for g in slot_groups[:-1]:
-                    fns[f"G={g}"] = lambda g=g: force3(default_unroll, g)(
+                    fns[f"G={g}"] = lambda g=g: force3(default_unroll, 1, g)(
                         x, k3)
                 mean, raw = turns(fns)
                 emit(step="K3 slot kernel", layout=name, f=f,
@@ -423,6 +555,31 @@ def main():
                 fns[label] = lambda k=k: k1_call(entries["k1"], nbr, w, x, k)
             mean, raw = turns(fns)
             emit(step="K1 kernels", layout=name, nbr=list(nbr.shape), f=f,
+                 fastest=min(mean, key=mean.get), ms=mean, turns=raw)
+
+    if "packed" in groups:
+        # K3 on rows of 16-256 bytes: the packed kernel at each rows-a-warp
+        # it takes, the wide and warp-per-row kernels and the dispatch, at
+        # every such width on three layouts and at the paths' own shapes on
+        # the rest
+        shapes = [(name, f, dtype) for name in ("50k fwd", "gcn",
+                                                "fb train fwd")
+                  for f, dtype in PACKED_WIDTHS]
+        shapes += [("50k bwd", 32, bf16)] + [
+            (name, f, bf16) for name in ("node-sharded rank 0",
+                                         "halo rank 0") for f in (64, 128)]
+        for name, f, dtype in shapes:
+            k3, rows = k3_layouts[name]
+            x = feats(rows, f, dtype)
+            fns = {"public": lambda: k3_call(entries["this spmm_bucketed"],
+                                             x, k3)}
+            variants = {"warp per row": force3(default_unroll, 0),
+                        "wide": force3(default_unroll, 2), **packed(f, dtype)}
+            for k, fn in variants.items():
+                fns[k] = lambda fn=fn: fn(x, k3)
+            mean, raw = turns(fns)
+            emit(step="K3 packed kernel", layout=name, rows=rows,
+                 output_rows=int(k3[0].shape[0]), f=f, dtype=str(dtype),
                  fastest=min(mean, key=mean.get), ms=mean, turns=raw)
 
     if "compare" in groups:

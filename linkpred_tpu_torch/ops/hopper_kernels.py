@@ -27,9 +27,13 @@ slot count D too) inside their launch functions:
         warp/row   any other shape
     K3  slot       rows under 16 bytes (F <= 3 f32, <= 7 bf16): a group of
                    lanes per row, one lane per slot, a shuffle tree per row
-        wide       rows of whole 16-byte groups, 256 bytes or more (128 when
-                   the card holds every output row at once): a warp per
-                   (row, 512-byte tile)
+        packed     rows of 1-16 whole 16-byte groups (16-256 bytes: F = 4-64
+                   f32, 8-128 bf16): G lanes a slot, G the row's groups
+                   rounded up to a power of two, and up to 32 / G rows a
+                   warp, as many as the output rows fill twice over the
+                   warps the card holds at once
+        wide       other rows of whole 16-byte groups: a warp per (row,
+                   512-byte tile)
         warp/row   any other shape, lanes across F
 
 Every path sums in a fixed order, so two launches on the same inputs agree

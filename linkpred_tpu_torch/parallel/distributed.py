@@ -8,8 +8,10 @@ it does nothing and returns False, as the reference's no-op does:
 
     torchrun --nproc-per-node N -m linkpred_tpu_torch.cli scale --family gcn
 
-There is no fallback. `backend=None` is NCCL for CUDA and gloo for the CPU;
-gloo on CUDA tensors runs only when the caller names it. A host with more
+There is no fallback. `device_type=None` is the card, and raises when none
+is visible: a CPU job names `device_type="cpu"`. `backend=None` is NCCL for
+CUDA and gloo for the CPU; gloo on CUDA tensors runs only when the caller
+names it. A host with more
 ranks than visible cards raises: ranks are not remapped onto fewer cards
 and the backend is not changed.
 """
@@ -29,17 +31,21 @@ from torch.distributed.device_mesh import DeviceMesh
 def initialize(backend: str | None = None, device_type: str | None = None,
                timeout_s: float = 600.0) -> bool:
     """Join the job described by the environment; True when this process
-    now runs distributed. `device_type` is "cuda" (the default when a card
-    is visible) or "cpu"; on "cuda" this process takes card `LOCAL_RANK`.
-    Safe to call twice, and a no-op (False) without `RANK` and
-    `WORLD_SIZE`."""
+    now runs distributed. `device_type` is "cuda" (the default, which
+    raises when no card is visible) or "cpu"; on "cuda" this process takes
+    card `LOCAL_RANK`. Safe to call twice, and a no-op (False) without
+    `RANK` and `WORLD_SIZE`."""
     env = os.environ
     if "RANK" not in env or "WORLD_SIZE" not in env:
         return False
     if dist.is_initialized():
         return True
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is visible; a CPU job joins with "
+                'initialize(device_type="cpu")')
+        device_type = "cuda"
     if backend is None:
         backend = "nccl" if device_type == "cuda" else "gloo"
     local_rank = int(env.get("LOCAL_RANK", 0))

@@ -86,12 +86,17 @@ def learn_embedding(train_pos: np.ndarray, train_neg: np.ndarray,
 
 def restore_seal_params(feature_dim: int, threshold_k: int,
                         path: str | None = None, *,
-                        device="cpu") -> seal.DGCNNParams:
-    """DGCNN parameters from a checkpoint of either package on `device`;
+                        device=None) -> seal.DGCNNParams:
+    """DGCNN parameters from a checkpoint of either package on `device`
+    (None: the card, `cuda_device()`, which raises when none is visible);
     by default the latest `checkpoints/seal/model-<step>.npz`."""
     path = path or checkpoint.latest_checkpoint("checkpoints/seal", "model")
     if path is None:
         raise FileNotFoundError("no SEAL checkpoint under checkpoints/seal/")
+    if device is None:
+        from linkpred_tpu_torch.utils.device import cuda_device
+
+        device = cuda_device()
     like = seal.init_params(torch.Generator().manual_seed(0), feature_dim,
                             threshold_k, device)
     return checkpoint.restore_pytree(path, like)

@@ -6,7 +6,7 @@ K2), and SEAL (no kernel: DRNL on the card against the C++ plane, a DGCNN
 step on the card against the CPU, and the dispatch entries of K1 and K2).
 Each kernel path that K1 and K3 choose by shape is held to the plain
 version, the narrow ones too (K3's slot kernel for rows under 16 bytes,
-K1's packed kernel), and two launches of those agree bit for bit.
+K3's and K1's packed kernels), and two launches of those agree bit for bit.
 
 Every test here carries the `cuda` marker and skips without a card. The file
 imports no JAX, so it also runs on a machine with a card and no JAX:
@@ -455,9 +455,10 @@ def _composed(cuda, seed=0, rows=700, slots=9000):
     return rows, fwd, bwd
 
 
-# F: rows that take the warp-per-row kernel (34 f32, not whole 16-byte
-# groups; 48 bf16, under 128 bytes), part of a tile (32, 96, 100 f32; 96, 128
-# bf16), whole tiles (128, 768, 1024), a ragged last tile (1028 f32, 264 bf16)
+# F: rows that take the warp-per-row kernel (34 and 100 f32, not whole
+# 16-byte groups), the packed kernel (32 f32; 48, 96 and 128 bf16: 16-256
+# bytes), and the wide kernel: part of a tile (96 f32), whole tiles (128, 768,
+# 1024 f32; 256, 1024 bf16), a ragged last tile (1028 f32, 264 bf16)
 WIDE_CASES = [(32, torch.float32), (34, torch.float32), (48, torch.bfloat16), (96, torch.float32), (100, torch.float32),
               (128, torch.float32), (768, torch.float32),
               (1024, torch.float32), (1028, torch.float32),
@@ -469,8 +470,9 @@ WIDE_CASES = [(32, torch.float32), (34, torch.float32), (48, torch.bfloat16), (9
 @pytest.mark.parametrize("direction", [0, 1], ids=["forward", "transpose"])
 @pytest.mark.parametrize("f,dtype", WIDE_CASES, ids=str)
 def test_spmm_bucketed_wide_rows(cuda, f, dtype, direction):
-    """Both kernels of K3, with and without the launch order, and from
-    storage offset by one element, against the plain version."""
+    """K3's kernels for rows of 16 bytes and more, with and without the
+    launch order, and from storage offset by one element, against the plain
+    version."""
     rows, *both = _composed(cuda)
     k3 = both[direction].k3
     x = _x(rows, f, dtype, cuda, f)
@@ -544,8 +546,9 @@ def test_spmm_ell_wide_rows(cuda, f):
 
 
 # ---------------------------------------------------------------------------
-# narrow rows: K3's slot kernel (rows under 16 bytes) and K1's packed kernel
-# (slot matrices of at most 32 columns)
+# narrow rows: K3's slot kernel (rows under 16 bytes), K3's packed kernel
+# (rows of 16-256 bytes) and K1's packed kernel (slot matrices of at most 32
+# columns)
 # ---------------------------------------------------------------------------
 
 
@@ -601,6 +604,44 @@ def test_spmm_bucketed_slot_kernel(cuda, f, dtype, width1_rows):
     before = hk.LAUNCHES["spmm_bucketed"]
     runs = [hk.spmm_bucketed(x, *k3), hk.spmm_bucketed(x, *k3),
             hk.spmm_bucketed(x, *k3[:4]), hk.spmm_bucketed(_offset_copy(x), *k3)]
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["spmm_bucketed"] == before + 4
+    for got in runs:
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        assert not got[zero_rows].any()
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **FEATURE_TOL[dtype])
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("width1_rows", [40, 9000])
+@pytest.mark.parametrize("f,dtype", [(8, torch.bfloat16), (16, torch.bfloat16),
+                                     (32, torch.bfloat16),
+                                     (64, torch.bfloat16),
+                                     (128, torch.bfloat16),
+                                     (4, torch.float32), (16, torch.float32),
+                                     (32, torch.float32), (64, torch.float32)],
+                         ids=str)
+def test_spmm_bucketed_packed_kernel(cuda, f, dtype, width1_rows):
+    """K3 on rows of 16-256 bytes (with 9,000 rows of width 1 the output
+    rows outnumber the warps an H100 holds and take the packed kernel),
+    with and without the launch order and from storage offset by one
+    element, against the plain version: buckets of widths 1, 7, 31, 33 and
+    130 and an empty one, zero weights, indices outside [0, NX), a NaN row
+    named only by weight-0 slots, degree-0 rows; two launches agree bit
+    for bit."""
+    k3 = _narrow_layout(cuda, width1_rows)
+    nx = 400
+    x = _x(nx, f, dtype, cuda, f)
+    x[0] = float("nan")
+    inv_perm, shapes = k3[:2]
+    ref = hk.spmm_bucketed_reference(x, *k3)
+    assert torch.isfinite(ref).all()
+    zero_rows = inv_perm == sum(r for r, _ in shapes)
+    before = hk.LAUNCHES["spmm_bucketed"]
+    runs = [hk.spmm_bucketed(x, *k3), hk.spmm_bucketed(x, *k3),
+            hk.spmm_bucketed(x, *k3[:4]),
+            hk.spmm_bucketed(_offset_copy(x), *k3)]
     torch.cuda.synchronize()
     assert hk.LAUNCHES["spmm_bucketed"] == before + 4
     for got in runs:

@@ -113,7 +113,7 @@ _SEAL_SCRIPT = textwrap.dedent("""
                           checkpoint_prefix=os.path.join(tmp, "ck", "model"))
         restored = sp.restore_seal_params(
             res["params"].gw[0].shape[0], res["threshold_k"],
-            os.path.join(tmp, "ck", "model-1000.npz"))
+            os.path.join(tmp, "ck", "model-1000.npz"), device="cpu")
     assert 0.0 <= res["auc"] <= 1.0
     out = ss.run_seal_scale(ss.ScaleSEALConfig(
         nodes=1500, edges=6000, target_pairs=64, epochs=1, max_neighbors=20),

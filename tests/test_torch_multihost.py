@@ -166,3 +166,39 @@ def test_initialize_without_a_job_is_a_no_op(monkeypatch):
         monkeypatch.delenv(k, raising=False)
     assert distributed.initialize() is False
     assert not torch.distributed.is_initialized()
+
+
+def _torchrun_env(monkeypatch, port):
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+
+
+def test_initialize_without_a_card_raises(monkeypatch):
+    """Under torchrun's environment with no card visible and no device
+    type named, `initialize` raises instead of joining a gloo job on the
+    CPU."""
+    _torchrun_env(monkeypatch, 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device_type="cpu"'):
+        distributed.initialize()
+    assert not torch.distributed.is_initialized()
+
+
+def test_initialize_joins_a_cpu_job_by_name(monkeypatch):
+    """A CPU job that names `device_type="cpu"` still joins, on gloo."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    _torchrun_env(monkeypatch, port)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        assert distributed.initialize(device_type="cpu", timeout_s=60.0)
+        assert torch.distributed.get_backend() == "gloo"
+        assert torch.distributed.get_world_size() == 1
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

@@ -374,7 +374,7 @@ class TestCompactInputs:
 def test_restored_checkpoint_scores_like_jax():
     """The committed checkpoint (feature_dim 114, threshold_k 100) restores
     and scores a fixed batch as the JAX package's restore does."""
-    pt = sp.restore_seal_params(114, 100, CKPT)
+    pt = sp.restore_seal_params(114, 100, CKPT, device="cpu")
     assert pt.w1.shape == (3072, 128)
     pj = jsp.restore_seal_params(114, 100, CKPT)
     adj, tags, nodes, mask, emb, y, T = compact_batch(9, P=8, K=100, N=200,
@@ -390,11 +390,24 @@ def test_restored_checkpoint_scores_like_jax():
 def test_restore_defaults_to_latest_checkpoint(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(FileNotFoundError):
-        sp.restore_seal_params(114, 100)
+        sp.restore_seal_params(114, 100, device="cpu")
     os.makedirs("checkpoints/seal")
     for step in (3, 1000):
         os.symlink(CKPT, f"checkpoints/seal/model-{step}.npz")
-    assert sp.restore_seal_params(114, 100).w1.shape == (3072, 128)
+    assert sp.restore_seal_params(114, 100, device="cpu").w1.shape == (
+        3072, 128)
+
+
+def test_restore_without_a_card_raises(tmp_path, monkeypatch):
+    """With no card visible and no device named, a restore raises instead
+    of restoring to the CPU; a missing checkpoint still raises
+    FileNotFoundError first."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(FileNotFoundError):
+        sp.restore_seal_params(114, 100)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        sp.restore_seal_params(114, 100, CKPT)
 
 
 def test_config_fields_and_defaults_match():
