@@ -4,14 +4,17 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only scale,n2v   # some groups, while working
 
-Builds kernels K1, K3 and K2 from `linkpred_tpu_torch/csrc/` (one nvcc per
-source, all at once), holds each against its plain PyTorch version on the
-card, times it beside its bound (the bytes it must move over the card's
-memory rate) and beside one PyTorch library call for the same function, and
-drives the port's paths through the entry points a user calls:
+Builds kernels K1, K3 and K2 (with K2's gradient) from
+`linkpred_tpu_torch/csrc/` (one nvcc per source, all at once), holds each
+against its plain PyTorch version on the card, times it beside its bound
+(the bytes it must move over the card's memory rate) and beside one PyTorch
+library call for the same function, and drives the port's paths through the
+entry points a user calls:
 TwoWL on fb-pages-food at the published-best widths (`train_routine_fused`,
 `run_twowl`; K1 and K3), collab-scale GCN training at the full published
-config (`train_collab`, `cli scale --family gcn`; K3 and K2), and the
+config (`train_collab`, `cli scale --family gcn`; K3, K2 and K2's gradient,
+two identical runs bitwise equal, and the step's device time beside the
+parent build's plain gradient), and the
 trial-major TwoWL sweep (`refine_vmapped` 32 trials x 1000 epochs,
 `refine_halving`, `refine_adaptive`, `cli twowl --refine`; K1 and K3),
 node2vec walks and SGNS embeddings with the logistic family
@@ -297,16 +300,11 @@ def device_kernels(fn, calls=10):
     raise AssertionError("device_kernels: no capture held the calls")
 
 
-def step_profile(run, steps=10):
-    """Kernels per step, device ms per step and the heaviest kernels of
-    `run(2, 2 + steps)` (steps or epochs 2 to 2 + `steps` of a loop, after
-    `run(0, 2)` untraced), from a torch.profiler trace. Annotation ranges
-    the trace shows on the card (e.g. `Optimizer.step#Adam.step`) overlap
-    real kernels: device events whose name is also a host event's are
-    dropped."""
+def _step_capture(run, steps):
+    """One torch.profiler capture of `run(2, 2 + steps)`: (device ms per
+    step, kernels per step, kernel name -> device ms per step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    run(0, 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -324,10 +322,39 @@ def step_profile(run, steps=10):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"kernels_per_step": len(kernels) / steps,
-            "device_ms_per_step": sum(by_name.values()) / steps / 1e3,
-            "top_ms_per_step": [[k[:100], v / steps / 1e3] for k, v in top]}
+    return (sum(by_name.values()) / steps / 1e3, len(kernels) / steps,
+            {k: v / steps / 1e3 for k, v in by_name.items()})
+
+
+def step_profile(run, steps=10):
+    """Kernels per step, device ms per step and the heaviest kernels of
+    `run(2, 2 + steps)` (steps or epochs 2 to 2 + `steps` of a loop, after
+    `run(0, 2)` untraced), from torch.profiler captures. As `kernel_ms`
+    does, captures are taken until two agree within 5 % on the device ms
+    (at most eight; the measurement fails without such a pair): the
+    profiler now and then loses a capture's first events or rescales a
+    whole capture. The pair's means are returned, with every capture's
+    device ms under `captures`. Annotation ranges the trace shows on the
+    card (e.g. `Optimizer.step#Adam.step`) overlap real kernels: device
+    events whose name is also a host event's are dropped."""
+    run(0, 2)
+    seen = []
+    for _ in range(8):
+        got = _step_capture(run, steps)
+        pair = next((u for u in seen
+                     if abs(got[0] - u[0]) <= 0.05 * max(got[0], u[0])), None)
+        seen.append(got)
+        if pair is not None:
+            names = set(pair[2]) | set(got[2])
+            ms = {k: (pair[2].get(k, 0.0) + got[2].get(k, 0.0)) / 2
+                  for k in names}
+            top = sorted(ms.items(), key=lambda kv: -kv[1])[:8]
+            return {"kernels_per_step": (pair[1] + got[1]) / 2,
+                    "device_ms_per_step": (pair[0] + got[0]) / 2,
+                    "captures": [u[0] for u in seen],
+                    "top_ms_per_step": [[k[:100], v] for k, v in top]}
+    raise AssertionError("step_profile: no two of eight captures agree: "
+                         f"{[u[0] for u in seen]}")
 
 
 def busy_shares(profiles, rate):
@@ -426,6 +453,58 @@ def sddmm_work(src, dst, x, y):
             ), 2 * int(keep.sum()) * f
 
 
+def sddmm_grad_work(g, src, dst, x, y=None):
+    """(bytes, flops) of K2's gradient on these operands: the outputs (dx
+    and dy, or one dh when `y` is None) written once, zeros included; each
+    row that a pair inside both tables names read once from the table the
+    gradient reads it from; the incidence order, both index arrays and `g`
+    read once; 2 flops per gathered element."""
+    table = x if y is None else y
+    f, es = x.shape[1], x.element_size()
+    keep = ((src >= 0) & (src < x.shape[0]) & (dst >= 0)
+            & (dst < table.shape[0]))
+    if y is None:
+        rows = int(torch.unique(torch.cat([src[keep], dst[keep]])).numel())
+        out_rows = x.shape[0]
+    else:
+        rows = int(torch.unique(src[keep]).numel()
+                   + torch.unique(dst[keep]).numel())
+        out_rows = x.shape[0] + y.shape[0]
+    e = src.shape[0]
+    return (out_rows * f * es + rows * f * es + 2 * e * 4
+            + e * (src.element_size() + dst.element_size() + 4)
+            ), 2 * 2 * int(keep.sum()) * f
+
+
+def parent_gradient(g, src, dst, h):
+    """K2's one-table gradient as the parent build took it: the plain
+    gradient of two tables (per table a f32 zero-fill, `index_add_` of the
+    gathered rows times `g` and a cast; `sddmm_grad_reference`), then
+    autograd's add of the two. Timed beside the kernel and behind the
+    parent's scoring in phase (k)'s profile; no path of the port runs it."""
+    from linkpred_tpu_torch.ops import hopper_kernels as hk
+
+    dx, dy = hk.sddmm_grad_reference(g, src, dst, h, h)
+    return dx + dy
+
+
+class ParentSddmm(torch.autograd.Function):
+    """K2 forward with `parent_gradient` behind it: the parent build's
+    scoring, for phase (k)'s profile."""
+
+    @staticmethod
+    def forward(ctx, src, dst, x):
+        from linkpred_tpu_torch.ops import hopper_kernels as hk
+
+        ctx.save_for_backward(src, dst, x)
+        return hk.sddmm(src, dst, x, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst, x = ctx.saved_tensors
+        return None, None, parent_gradient(g, src, dst, x)
+
+
 def bound(work):
     """The least time the card could take for `work` = (bytes, flops): the
     larger of bytes over its memory rate and flops over its f32 rate."""
@@ -443,11 +522,15 @@ def bound(work):
 # ---------------------------------------------------------------------------
 
 
-def _csr(rows, cols, vals, shape):
-    """CSR matrix of the given entries, duplicates summed."""
+def _csr(rows, cols, vals, shape, dtype=None):
+    """CSR matrix of the given entries, duplicates summed in `vals`' type
+    and then, where `dtype` is given, rounded to it."""
     coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
-                                  vals, shape)
-    return coo.coalesce().to_sparse_csr()
+                                  vals, shape).coalesce()
+    if dtype is not None:
+        coo = torch.sparse_coo_tensor(coo.indices(), coo.values().to(dtype),
+                                      shape, is_coalesced=True)
+    return coo.to_sparse_csr()
 
 
 def ell_csr(nbr, w, nx):
@@ -477,6 +560,18 @@ def bucketed_csr(inv_perm, bucket_shapes, nbr, w, nx, dtype=torch.float32):
     live = _live_slots(nbr, w, nx)[slot]
     return _csr(rows[live], nbr[slot][live], w[slot][live].to(dtype),
                 (p.shape[0], nx))
+
+
+def sddmm_grad_csr(g, src, dst, n, dtype=torch.float32):
+    """The pairs as a CSR matrix `[n, n]` weighted by the cotangent at both
+    ends (entries (src[e], dst[e]) and (dst[e], src[e]) of g[e], repeated
+    pairs summed in f32, then rounded to `dtype`; pairs outside [0, n)
+    left out): K2's one-table gradient `sddmm_grad(g, src, dst, h)[0]` is
+    `torch.sparse.mm(sddmm_grad_csr(g, src, dst, n), h)`."""
+    keep = (src >= 0) & (src < n) & (dst >= 0) & (dst < n)
+    s, d, gk = src[keep], dst[keep], g[keep].float()
+    return _csr(torch.cat([s, d]), torch.cat([d, s]), torch.cat([gk, gk]),
+                (n, n), dtype)
 
 
 # a library call against the kernel: the library sums in its own order and,
@@ -686,10 +781,17 @@ def gcn_phases(dev, hk):
         return [torch.randint(lo, hi, (e,), generator=gen, device=dev,
                               dtype=torch.int32) for _ in range(2)]
 
+    # a hub: node 7 named by 500 of the pairs, at both ends
+    hub = [torch.where(torch.arange(16384, device=dev) % 33 == k,
+                       torch.full_like(p, 7), p)
+           for k, p in enumerate(rand_pairs(16384, 0, N))]
     cases = {
         "step 16384 x128 bf16": (*batches[0], h_bf, h_bf),
         "step 16384 x128 f32": (*batches[0], h_32, h_32),
         "test 51200 x128 bf16": (*test_pairs, h_bf, h_bf),
+        "hub 16384 x128 bf16": (*hub, h_bf, feats(N, 128, bf16)),
+        "unaligned 16384 x128 bf16": (*batches[0], offset_copy(h_bf),
+                                      offset_copy(h_bf)),
         "ragged 16384 x33 bf16": (*rand_pairs(16384), feats(N, 33, bf16),
                                   feats(N, 33, bf16)),
         "ragged 16384 x1 f32": (*rand_pairs(16384), feats(N, 1, f32),
@@ -711,7 +813,70 @@ def gcn_phases(dev, hk):
                       lambda: hk.sddmm(*step_args)),
         sddmm_work(*step_args), hk, dev, library, reason,
         launches_per_step=rates.get("sddmm F=128", 0))
-    phase("i_k2_time", case="step 16384 x128 bf16", **k2_time)
+    phase("i_k2_time", case="step 16384 x128 bf16", **k2_time,
+          device_kernel=device_kernels(lambda: hk.sddmm(*step_args)))
+    # K2's gradient against its plain version: one table (the GCN's case),
+    # two tables, the hub, pairs outside the tables, rows that are not
+    # 16-byte groups; each launched twice and bitwise equal
+    gen_g = torch.Generator(device=dev).manual_seed(3)
+
+    def cot(e):
+        return torch.randn(e, generator=gen_g, device=dev)
+
+    grad_cases = {
+        "step one table x128 bf16": (*batches[0], h_bf, None),
+        "step one table x128 f32": (*batches[0], h_32, None),
+        "step two tables x128 bf16": (*batches[0], h_bf, feats(N, 128, bf16)),
+        "hub one table x128 bf16": (*hub, h_bf, None),
+        "hub two tables x128 f32": (*hub, h_32, feats(N, 128, f32)),
+        "outside one table x64 bf16": (*rand_pairs(16384), feats(N, 64, bf16),
+                                       None),
+        "ragged two tables x33 bf16": (*rand_pairs(16384), feats(N, 33, bf16),
+                                       feats(N, 33, bf16)),
+        "test one table x128 bf16": (*test_pairs, h_bf, None),
+    }
+    k2g_err = 0.0
+    for name, (src, dst, x, y) in grad_cases.items():
+        g_case = cot(src.shape[0])
+        before = hk.LAUNCHES["sddmm_grad"]
+        got = hk.sddmm_grad(g_case, src, dst, x, y)
+        again = hk.sddmm_grad(g_case, src, dst, x, y)
+        assert hk.LAUNCHES["sddmm_grad"] == before + 2, name
+        ref = hk.sddmm_grad_reference(g_case, src, dst, x, y)
+        tol = BF16_TOL if x.dtype == bf16 else F32_TOL
+        err = max(check(f"{name} {k}", a, b, tol) for k, a, b in
+                  (("dx", got[0], ref[0]), ("dy", got[1], ref[1]))
+                  if a is not None)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None), name
+        k2g_err = max(k2g_err, err)
+        phase("i_k2_grad_check", case=name, max_abs_err=err,
+              bitwise_repeatable=True)
+    src, dst = batches[0]
+    g_step = cot(src.shape[0])
+    order = hk.incidence_order(src, dst)
+    expect = hk.sddmm_grad(g_step, src, dst, h_bf, None, order)[0]
+    library, reason = library_spmm(
+        lambda: sddmm_grad_csr(g_step, src, dst, N, bf16), h_bf, expect)
+    before = ESTIMATED_READINGS[0]
+    k2g_time = report(
+        time_in_turns(
+            lambda: hk.sddmm_grad_reference(g_step, src, dst, h_bf),
+            lambda: hk.sddmm_grad(g_step, src, dst, h_bf, None, order)),
+        sddmm_grad_work(g_step, src, dst, h_bf), hk, dev, library, reason,
+        launches_per_step=rates.get("sddmm_grad F=128", 0))
+    parent = [kernel_ms(lambda: parent_gradient(g_step, src, dst, h_bf))
+              for _ in range(2)]
+    k2g_time.update(
+        parent_ms=sum(parent) / 2, parent_ms_turns=parent,
+        with_order_ms=kernel_ms(lambda: hk.sddmm_grad(g_step, src, dst,
+                                                      h_bf)),
+        order_ms=kernel_ms(lambda: hk.incidence_order(src, dst)),
+        zero_fill_ms=kernel_ms(lambda: torch.zeros_like(h_bf)))
+    k2g_time["estimated_readings"] = ESTIMATED_READINGS[0] - before
+    phase("i_k2_grad_time", case="step one table x128 bf16", **k2g_time,
+          device_kernel=device_kernels(
+              lambda: hk.sddmm_grad(g_step, src, dst, h_bf, None, order)))
 
     # (j) the main path: `train_collab` at the full config (GCN_SEEDS).
     # The launch counts are zeroed just before and read just after each run.
@@ -728,7 +893,8 @@ def gcn_phases(dev, hk):
         assert set(res) == GCN_KEYS, sorted(res)
         assert res["loss_decreased"], res
         assert res["test_auc"] >= GCN_AUC_FLOOR, res
-        assert counts["spmm_bucketed"] > 0 and counts["sddmm"] > 0, counts
+        assert all(counts[k] > 0 for k in ("spmm_bucketed", "sddmm",
+                                           "sddmm_grad")), counts
         phase("j_gcn_train", seed=seed, launches=counts, **res)
 
     # (k) the same steps on the kernels and on their plain versions, in
@@ -739,24 +905,54 @@ def gcn_phases(dev, hk):
 
     paths = {"kernel": (spmm.spmm_bucketed_sym, sd.sddmm_coo),
              "plain": (spmm.spmm_bucketed_sym_reference, plain_score)}
-    turns = []
+    turns, before = [], dict(hk.LAUNCHES)
     for name in ("kernel", "plain", "plain", "kernel"):
         params = gs.init_params(cfg, torch.Generator().manual_seed(cfg.seed),
                                 dev)
         turns.append(gs.train_and_score(cfg, problem, ops, params, dev,
                                         *paths[name]))
+    # the kernel runs' launches (the plain runs launch none)
+    turn_launches = {k: hk.LAUNCHES[k] - before[k] for k in before}
+    assert all(turn_launches[k] > 0 for k in ("spmm_bucketed", "sddmm",
+                                              "sddmm_grad")), turn_launches
     rate = [cfg.steps / r["train_seconds"] for r in turns]
     assert turns[1]["loss_decreased"], turns[1]
     assert abs(turns[1]["test_auc"] - turns[0]["test_auc"]) < 0.01, turns
+    # the profiles: the kernel path, the plain one, and the parent build's
+    # step (K2's gradient in plain PyTorch, `parent_gradient`)
+    def parent_score(src, dst, h):
+        return ParentSddmm.apply(src, dst, h).to(h.dtype)
+
     profiles = {}
-    for name, (agg, score) in paths.items():
+    for name, (agg, score) in [*paths.items(),
+                               ("parent", (spmm.spmm_bucketed_sym,
+                                           parent_score))]:
         params = gs.init_params(cfg, torch.Generator().manual_seed(cfg.seed),
                                 dev)
         opt = gs.adam(params, cfg.learning_rate)
         profiles[name] = step_profile(
             lambda a, b: gs.train_steps(params, opt, batches[a:b], ops, cfg,
                                         agg, score))
-    phase("k_gcn_turns", steps=cfg.steps,
+    parent_profile = profiles.pop("parent")
+    # the share of a step's device time that K2's gradient takes (on the
+    # kernel path with the incidence sort its backward does)
+    gradient = {
+        "kernel_ms": k2g_time["ms"],
+        "kernel_and_sort_ms": k2g_time["with_order_ms"],
+        "parent_ms": k2g_time["parent_ms"],
+        "kernel_share": k2g_time["with_order_ms"] / profiles["kernel"][
+            "device_ms_per_step"],
+        "parent_share": k2g_time["parent_ms"] / parent_profile[
+            "device_ms_per_step"],
+        "device_ms_per_step_kernel_parent": [
+            profiles["kernel"]["device_ms_per_step"],
+            parent_profile["device_ms_per_step"]],
+        "kernels_per_step_kernel_parent": [
+            profiles["kernel"]["kernels_per_step"],
+            parent_profile["kernels_per_step"]]}
+    phase("k_gcn_turns", steps=cfg.steps, gradient=gradient,
+          launches_kernel_turns=turn_launches,
+          parent_profile=parent_profile,
           steps_per_s=(rate[0] + rate[3]) / 2,
           plain_steps_per_s=(rate[1] + rate[2]) / 2,
           steps_per_s_kernel_plain_plain_kernel=rate,
@@ -764,6 +960,24 @@ def gcn_phases(dev, hk):
           loss_last_quarter_kernel_plain=[turns[0]["loss_last_quarter"],
                                           turns[1]["loss_last_quarter"]],
           busy_share=busy_shares(profiles, rate), profile=profiles)
+
+    # two identical runs of the collab training from the same parameters:
+    # K2's gradient kernel writes every row once in a fixed order, so the
+    # losses and the test AUC repeat bit for bit (the parent's plain
+    # gradient added its rows by index_add_'s atomics, and did not)
+    runs = []
+    for _ in range(2):
+        params = gs.init_params(cfg, torch.Generator().manual_seed(cfg.seed),
+                                dev)
+        res, losses = gs.train_and_score(cfg, problem, ops, params, dev,
+                                         spmm.spmm_bucketed_sym, sd.sddmm_coo,
+                                         return_losses=True)
+        runs.append((losses, res["test_auc"]))
+    assert np.array_equal(runs[0][0], runs[1][0]), runs
+    assert runs[0][1] == runs[1][1], runs
+    phase("k_gcn_repeat", steps=cfg.steps, losses_bitwise_equal=True,
+          test_auc=[r[1] for r in runs],
+          last_losses=[[float(v) for v in r[0][-3:]] for r in runs])
 
     # (l) the entry point a user calls, in this process
     out = io.StringIO()
@@ -797,7 +1011,8 @@ def gcn_phases(dev, hk):
 
     return {"launches": launches, "by_width": by_width, "k3_err": k3_err,
             "k3_time": k3_time,
-            "k2_err": k2_err, "k2_time": k2_time, "graph": g,
+            "k2_err": k2_err, "k2_time": k2_time, "k2g_err": k2g_err,
+            "k2g_time": k2g_time, "graph": g,
             "problem": problem}
 
 
@@ -992,7 +1207,8 @@ def sweep_phases(dev, hk, data, run, trn, rates):
             launches_per_epoch=rates[path].get(f"spmm_ell F={f}", 0))
         phase("n_k1_trials" if f == 24 * T else "n_k1_time",
               shape=[list(a.shape) for a in args], max_abs_err=k1_err,
-              **k1_times[f])
+              **k1_times[f],
+              device_kernel=device_kernels(lambda: hk.spmm_ell(*args)))
 
     # (o) forward_trials at T = 32 against the single-trial forward of each
     # extracted trial (eval mode), and one train_step_trials on 'ell'
@@ -2103,6 +2319,10 @@ def par_ops_rank(rank, world, dev, grp, inputs, save_dir):
             err[f"sddmm {tag} vs plain"] = check(
                 "sddmm", hk.sddmm(ar, ar + e, table, table),
                 hk.sddmm_reference(ar, ar + e, table, table), K2_TOL)
+            cot = _par_x(e, 1, torch.float32, 3)[:, 0].to(dev)
+            err[f"sddmm_grad {tag} vs plain"] = check(
+                "sddmm_grad", hk.sddmm_grad(cot, ar, ar + e, table)[0],
+                hk.sddmm_grad_reference(cot, ar, ar + e, table)[0], tol)
             if keep:
                 saved["sddmm"] = (ar.cpu(), (ar + e).cpu(), table.cpu())
     if rank == 0:
@@ -2557,7 +2777,27 @@ def parallel_phases(dev, hk, problem=None, walk_rates=None):
                       lambda: hk.sddmm(src, dst, table, table)),
         sddmm_work(src, dst, table, table), hk, dev, library, reason)
     phase("par_ops_time", kernel="K2", path="gcn sharded scoring",
-          pairs=int(src.shape[0]), table=list(table.shape), **times["sddmm"])
+          pairs=int(src.shape[0]), table=list(table.shape), **times["sddmm"],
+          device_kernel=device_kernels(
+              lambda: hk.sddmm(src, dst, table, table)))
+    cot = torch.randn(src.shape[0], device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    order = hk.incidence_order(src, dst)
+    expect = hk.sddmm_grad(cot, src, dst, table, None, order)[0]
+    library, reason = library_spmm(
+        lambda: sddmm_grad_csr(cot, src, dst, table.shape[0], table.dtype),
+        table, expect)
+    times["sddmm_grad"] = report(
+        time_in_turns(
+            lambda: hk.sddmm_grad_reference(cot, src, dst, table),
+            lambda: hk.sddmm_grad(cot, src, dst, table, None, order)),
+        sddmm_grad_work(cot, src, dst, table), hk, dev, library, reason)
+    times["sddmm_grad"].update(
+        parent_ms=kernel_ms(lambda: parent_gradient(cot, src, dst, table)),
+        with_order_ms=kernel_ms(lambda: hk.sddmm_grad(cot, src, dst, table)))
+    phase("par_ops_time", kernel="K2 gradient", path="gcn sharded scoring",
+          pairs=int(src.shape[0]), table=list(table.shape),
+          **times["sddmm_grad"])
     trn = m.SplitArrays.from_split(data.train, dev)
     x1 = _par_x(int(trn.num_msg), 8 * twowl_cfg.channels_1wl, torch.float32,
                 4).to(dev)
@@ -2571,7 +2811,8 @@ def parallel_phases(dev, hk, problem=None, walk_rates=None):
         spmm_ell_work(slots, weight, x1), hk, dev, library, reason)
     phase("par_ops_time", kernel="K1", path="twowl trial-sharded (8 of 32 "
           "trials a rank)", nbr=list(slots.shape), x=list(x1.shape),
-          **times["spmm_ell"])
+          **times["spmm_ell"],
+          device_kernel=device_kernels(lambda: hk.spmm_ell(slots, weight, x1)))
     out = {"ops_err": ops_err, "times": times,
            "twowl_launches": twowl_launches,
            "k1_err": max(t["k1_err"] for t in tw)}
@@ -2624,6 +2865,7 @@ def _par_collab(dev, cfg, cfg_halo, problem, built_ns, built_halo):
         assert res["loss_decreased"], res
         assert res["test_auc"] >= GCN_AUC_FLOOR, res
         assert all(n > 0 for n in per_rank) and counts["sddmm"] > 0, counts
+        assert counts["sddmm_grad"] > 0, counts
         assert all(counts.get(f"spmm_bucketed F={f}", 0) > 0
                    for f in PAR_WIDTHS), counts
         assert res["aggregation"] == name, res
@@ -3048,7 +3290,8 @@ def slice_phases(dev, hk, data, run, trn, rates):
                           lambda: hk.spmm_ell(*args)),
             spmm_ell_work(*args), hk, dev, library, reason,
             launches_per_epoch=rates["slice"].get(f"spmm_ell F={f}", 0))
-        phase("c_k1_time", case=name, **timing[name])
+        phase("c_k1_time", case=name, **timing[name],
+              device_kernel=device_kernels(lambda: hk.spmm_ell(*args)))
 
     # (d) kernel path against plain path: published-best architecture,
     # dropouts 0, same init. lr 1e-3: at 1e-2 Adam turns the f32-noise
@@ -3276,6 +3519,10 @@ def main():
             sweep["k3_times"][32 * SWEEP_TRIALS]),
         row("sddmm", "gcn collab", "sddmm.cu", 144, gcn["launches"]["sddmm"],
             gcn["k2_err"], gcn["k2_time"]),
+        # K2's gradient (the reference's autodiff of the TPU kernel's
+        # gathers), with the collab run's launches and its step's time
+        row("sddmm_grad", "gcn collab backward", "sddmm.cu", 144,
+            gcn["launches"]["sddmm_grad"], gcn["k2g_err"], gcn["k2g_time"]),
         # K3 at the GCN's two widths, each with its width's launches in
         # the collab run (phase j) and its time on that layout (phase h)
         *[row("spmm_bucketed", f"gcn collab F={f} bf16", "spmm_bucketed.cu",
@@ -3325,7 +3572,12 @@ def main():
             144, par["collab"]["node_sharded"]["sddmm"]
             + par["collab"]["halo"]["sddmm"],
             max(v for k, v in par["ops_err"].items()
-                if k.startswith("sddmm")), par["times"]["sddmm"]),
+                if k.startswith("sddmm ")), par["times"]["sddmm"]),
+        row("sddmm_grad", "gcn node_sharded and halo backward, 4 gloo ranks",
+            "sddmm.cu", 144, par["collab"]["node_sharded"]["sddmm_grad"]
+            + par["collab"]["halo"]["sddmm_grad"],
+            max(v for k, v in par["ops_err"].items()
+                if k.startswith("sddmm_grad")), par["times"]["sddmm_grad"]),
         row("spmm_ell", "twowl trial-sharded, 4 gloo ranks", "spmm_ell.cu", 68,
             par["twowl_launches"]["spmm_ell"], par["k1_err"],
             par["times"]["spmm_ell"]),

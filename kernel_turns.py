@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Times the port's hand-written kernels on one card in turns, beyond what
-`chip_smoke.py` times: each path of K3 and K1 forced at the shapes of the
-TwoWL and GCN paths (the numbers behind the dispatch thresholds written in
-`csrc/spmm_bucketed.cu` and `csrc/spmm_ell.cu`), and, with `--other`, this
-checkout's kernels against another build of their sources at every shape of
-the kernel table in `PERF.md`.
+`chip_smoke.py` times: each path of K3, K1 and K2's forward forced at the
+shapes of the TwoWL and GCN paths (the numbers behind the dispatch
+thresholds written in `csrc/spmm_bucketed.cu`, `csrc/spmm_ell.cu` and
+`csrc/sddmm.cu`), and, with `--other`, this checkout's kernels against
+another build of their sources at every shape of the kernel table in
+`PERF.md`.
 
-    python3 kernel_turns.py --groups check,paths,packed
+    python3 kernel_turns.py --groups check,paths,packed,split,k2,hoist
     python3 kernel_turns.py --groups compare \\
         --other build/parent/linkpred_tpu_torch/csrc
 
@@ -22,15 +23,23 @@ and the two turns are printed beside their mean. One JSON line per
 measurement, the card's name and power limit first; `--out` appends them to
 a file too.
 
-The forced paths come from copies of this checkout's K3 and K1 sources
+The forced paths come from copies of this checkout's K3, K1 and K2 sources
 under `build/kernel_turns/`, each with an entry point appended that launches
-one kernel by name (`FORCE_K3`, `FORCE_K1`), and one K3 copy for each value
-of `kSlotsUnroll` in `--unrolls` (the slot kernel) and of `kPackedUnroll`
-in `--packed-unrolls` (the packed kernel). Groups: `check` holds every
-forced kernel against the plain version; `paths` times K3's slot kernel and
-K1's three kernels at the narrow shapes; `packed` times K3's packed kernel
-at each rows-a-warp beside the wide and warp-per-row kernels, on rows of
-16-256 bytes; `compare` needs `--other`. Needs a card and `nvcc`; the data
+one kernel by name (`FORCE_K3`, `FORCE_K1`, `FORCE_K2`), and one K3 copy for
+each value of `kSlotsUnroll` in `--unrolls` (the slot kernel) and of
+`kPackedUnroll` in `--packed-unrolls` (the packed kernel). Groups: `check`
+holds every forced kernel against the plain version; `paths` times K3's
+slot kernel and K1's packed, wide and warp-per-row kernels at the narrow
+shapes; `packed` times K3's packed kernel at each rows-a-warp beside the
+wide and warp-per-row kernels, on rows of 16-256 bytes; `split` times K1's
+split kernel at each warps a row beside K1's other kernels on fb-pages-food's
+`[620, 114]` slots (and tiled to 4 and 16 times the rows); `k2` times K2's
+packed forward at each rounds a warp beside the warp-per-edge kernel on the
+GCN's pairs (`split` and `k2` hold each kernel against the plain version
+first); `hoist` times the GCN's 60 training steps (steps/s, host clock)
+with K2's gradient sorting its incidences in each backward, as the port
+does, and with every step's order built once before the loop; `compare`
+needs `--other`. Needs a card and `nvcc`; the data
 are the smoke's (fb-pages-food's TwoWL splits, TwoWL at 50k nodes, the
 collab-scale GCN graph and, for `packed` and `compare`, its four-rank
 layouts), built on the host first.
@@ -55,7 +64,7 @@ from linkpred_tpu_torch.ops import hopper_kernels as hk
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "linkpred_tpu_torch" / "csrc"
 WORK = ROOT / "build" / "kernel_turns"
-GROUPS = ("check", "paths", "packed", "compare")
+GROUPS = ("check", "paths", "packed", "split", "k2", "hoist", "compare")
 
 # kernel: 0 the warp-per-row kernel (feature pairs a lane where the rows
 # allow them, as the dispatch takes it), 1 the slot kernel at `group` lanes a
@@ -170,8 +179,31 @@ extern "C" int force_k3(int dtype, int kernel, int group, int rows,
 }
 """
 
-# kernel: 0 the warp-per-row kernel, 1 the wide kernel, 2 the packed kernel
+# kernel: 0 the warp-per-row kernel, 1 the wide kernel, 2 the packed kernel,
+# 3 the split kernel at the warps a row its launch picks, 4-7 the split
+# kernel at 2, 4, 8 or 16 warps a row
 FORCE_K1 = r'''
+namespace {
+template <int kGroup>
+void force_split(int warps, const int32_t* nbr, const float* w,
+                 const float* x, float* out, int64_t m, int64_t d,
+                 int64_t nx, int64_t f, cudaStream_t s) {
+  switch (warps) {
+    case 2: launch_split_warps<kGroup, 2>(nbr, w, x, out, m, d, nx, f, s);
+      break;
+    case 4: launch_split_warps<kGroup, 4>(nbr, w, x, out, m, d, nx, f, s);
+      break;
+    case 8: launch_split_warps<kGroup, 8>(nbr, w, x, out, m, d, nx, f, s);
+      break;
+    case 16: launch_split_warps<kGroup, 16>(nbr, w, x, out, m, d, nx, f, s);
+      break;
+    default: launch_split<kGroup>(split_warps(m, d, f) > 0 ?
+                                  split_warps(m, d, f) : 8, nbr, w, x, out,
+                                  m, d, nx, f, s);
+  }
+}
+}  // namespace
+
 extern "C" int force_k1(int kernel, const int32_t* nbr, const float* w,
                         const float* x, float* out, int64_t m, int64_t d,
                         int64_t nx, int64_t f, void* stream) {
@@ -188,6 +220,18 @@ extern "C" int force_k1(int kernel, const int32_t* nbr, const float* w,
     spmm_ell_wide_kernel<<<static_cast<unsigned>(m * tiles), kWarp * kSplit,
                            0, s>>>(nbr, w, x, out, di, nxi, fi,
                                    static_cast<int>(tiles));
+  } else if (kernel >= 3) {
+    const int warps = kernel == 3 ? 0 : 1 << (kernel - 3);
+    const int64_t groups = f / 4;
+    if (groups <= 1) force_split<1>(warps, nbr, w, x, out, m, d, nx, f, s);
+    else if (groups <= 2) force_split<2>(warps, nbr, w, x, out, m, d, nx, f, s);
+    else if (groups <= 4) force_split<4>(warps, nbr, w, x, out, m, d, nx, f, s);
+    else if (groups <= 8) force_split<8>(warps, nbr, w, x, out, m, d, nx, f, s);
+    else if (groups <= 16) {
+      force_split<16>(warps, nbr, w, x, out, m, d, nx, f, s);
+    } else {
+      force_split<32>(warps, nbr, w, x, out, m, d, nx, f, s);
+    }
   } else {
     const int64_t groups = f / 4;
     if (groups <= 1) launch_packed<1>(nbr, w, x, out, m, d, nx, f, s);
@@ -198,6 +242,69 @@ extern "C" int force_k1(int kernel, const int32_t* nbr, const float* w,
     else launch_packed<32>(nbr, w, x, out, m, d, nx, f, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+'''
+
+# kernel: 0 the warp-per-edge kernel, 1 the packed kernel at `rounds` rounds
+# a warp (1, 2 or 4; rows of whole 16-byte groups, at most 32 of them)
+FORCE_K2 = r'''
+namespace {
+template <typename T>
+int force2(int kernel, int rounds, const int32_t* src, const int32_t* dst,
+           const T* x, const T* y, float* out, int64_t e, int64_t nx,
+           int64_t ny, int64_t f, cudaStream_t s) {
+  if (kernel == 0) {
+    const unsigned blocks =
+        static_cast<unsigned>((e + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    if (pairs_aligned(f, sizeof(T), {x, y})) {
+      sddmm_kernel<T, 2><<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
+          src, dst, x, y, out, e, nx, ny, f);
+    } else {
+      sddmm_kernel<T, 1><<<blocks, kWarp * kWarpsPerBlock, 0, s>>>(
+          src, dst, x, y, out, e, nx, ny, f);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t groups = f * static_cast<int64_t>(sizeof(T)) / 16;
+  if (!wide_aligned(f, sizeof(T), 16, {x, y}) || groups > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define ROUNDS(G)                                                          \
+  if (groups <= G) {                                                       \
+    constexpr int kAt = kWarp / G;                                         \
+    if (rounds == 4 && kAt * 4 <= kWarp) {                                 \
+      launch_packed_rounds<T, G, (kAt * 4 <= kWarp ? 4 : 1), 1>(           \
+          src, dst, x, y, out, e, nx, ny, f, s);                           \
+    } else if (rounds == 2 && kAt * 2 <= kWarp) {                          \
+      launch_packed_rounds<T, G, (kAt * 2 <= kWarp ? 2 : 1), 1>(           \
+          src, dst, x, y, out, e, nx, ny, f, s);                           \
+    } else if (rounds == 1) {                                              \
+      launch_packed_rounds<T, G, 1, 1>(src, dst, x, y, out, e, nx, ny, f,  \
+                                       s);                                 \
+    } else {                                                               \
+      return static_cast<int>(cudaErrorInvalidValue);                      \
+    }                                                                      \
+    return static_cast<int>(cudaGetLastError());                           \
+  }
+  ROUNDS(1) ROUNDS(2) ROUNDS(4) ROUNDS(8) ROUNDS(16) ROUNDS(32)
+#undef ROUNDS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+}  // namespace
+
+extern "C" int force_k2(int dtype, int kernel, int rounds,
+                        const int32_t* src, const int32_t* dst,
+                        const void* x, const void* y, float* out, int64_t e,
+                        int64_t nx, int64_t ny, int64_t f, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return force2<float>(kernel, rounds, src, dst,
+                         static_cast<const float*>(x),
+                         static_cast<const float*>(y), out, e, nx, ny, f, s);
+  }
+  return force2<__nv_bfloat16>(
+      kernel, rounds, src, dst, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(y), out, e, nx, ny, f, s);
 }
 '''
 
@@ -285,6 +392,9 @@ def build_variants(unrolls, packed_unrolls, other):
     p = src_dir / "k1.cu"
     p.write_text((CSRC / "spmm_ell.cu").read_text() + FORCE_K1)
     jobs["k1"] = p
+    p = src_dir / "k2.cu"
+    p.write_text((CSRC / "sddmm.cu").read_text() + FORCE_K2)
+    jobs["k2"] = p
     if other is not None:
         for name in ("spmm_ell", "spmm_bucketed", "sddmm"):
             jobs[f"other {name}"] = Path(other) / f"{name}.cu"
@@ -307,6 +417,9 @@ def build_variants(unrolls, packed_unrolls, other):
     fn = libs["k1"].force_k1
     fn.argtypes = [_I32] + [_P] * 4 + [_I64] * 4 + [_P]
     entries["k1"] = fn
+    fn = libs["k2"].force_k2
+    fn.argtypes = [_I32] * 3 + [_P] * 5 + [_I64] * 4 + [_P]
+    entries["k2"] = fn
     for name in ("spmm_ell", "spmm_bucketed", "sddmm"):
         symbol, argtypes = hk._ENTRY_POINTS[name]
         entries[f"this {name}"] = fn = getattr(build.library(name), symbol)
@@ -352,6 +465,20 @@ def k1_call(fn, nbr, w, x, kernel=None):
     rc = fn(*head, nbr.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(),
             m, d, nx, f, _stream())
     assert rc == 0, f"K1 launch refused: {rc}"
+    return out
+
+
+def k2_call(fn, src, dst, x, y, kernel=None):
+    """K2 through `fn`: a public entry (`kernel` None) or `force_k2`, with
+    `kernel` its (kernel, rounds)."""
+    e, (nx, f), ny = src.shape[0], x.shape, y.shape[0]
+    out = torch.empty(e, device=x.device)
+    head = (hk._DTYPE_CODES[x.dtype],)
+    if kernel is not None:
+        head += tuple(kernel)
+    rc = fn(*head, src.data_ptr(), dst.data_ptr(), x.data_ptr(), y.data_ptr(),
+            out.data_ptr(), e, nx, ny, f, _stream())
+    assert rc == 0, f"K2 launch refused: {rc}"
     return out
 
 
@@ -403,7 +530,18 @@ def layouts(dev, need_sharded):
                              len(cs._halo_table_rows(halo["layout"], 0)))
     k1 = {"fb train": (trn.msg_slots, trn.msg_sweight, trn.num_msg),
           "50k": (scale.msg_slots, scale.msg_sweight, scale.num_msg)}
-    return k3, k1
+    # K2's pairs: a training step's (the first batch), the test pairs, and
+    # a rank's scoring of the step over its gathered rows (pair e is rows e
+    # and E + e of the gathered table)
+    _, train_pos, test_pos, test_neg = problem
+    step = torch.from_numpy(gs.batch_schedule(cfg, train_pos)[0]).to(dev)
+    test = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([test_pos, test_neg]).astype(np.int32).T)).to(dev)
+    ids = torch.arange(step.shape[1], device=dev, dtype=torch.int32)
+    k2 = {"step": (step[0], step[1], cfg.nodes),
+          "test": (test[0], test[1], cfg.nodes),
+          "rank": (ids, ids + step.shape[1], 2 * step.shape[1])}
+    return k3, k1, k2, (cfg, problem)
 
 
 def main():
@@ -443,7 +581,7 @@ def main():
          default_packed_unroll=default_packed, packed_registers=regs,
          seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    k3_layouts, k1_layouts = layouts(
+    k3_layouts, k1_layouts, k2_pairs, gcn = layouts(
         dev, "compare" in groups or "packed" in groups)
     emit(step="data", seconds=time.perf_counter() - t0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -453,6 +591,22 @@ def main():
 
     def feats(rows, f, dtype=f32):
         return torch.randn((rows, f), generator=gen, device=dev).to(dtype)
+
+    def k2_variants(src, dst, f, dtype):
+        """K2's forward kernels at `f` features of `dtype`: label ->
+        callable(x, y), the packed kernel at each rounds a warp that keeps
+        a warp's edges within 32."""
+        groups = f * torch.tensor([], dtype=dtype).element_size() // 16
+        at_once = 32 // min(32, 1 << max(groups - 1, 0).bit_length())
+        out = {"public": lambda x, y: k2_call(entries["this sddmm"], src,
+                                              dst, x, y),
+               "warp per edge": lambda x, y: k2_call(entries["k2"], src, dst,
+                                                     x, y, (0, 1))}
+        for r in (1, 2, 4):
+            if groups <= 32 and at_once * r <= 32:
+                out[f"rounds {r}"] = (lambda r=r: lambda x, y: k2_call(
+                    entries["k2"], src, dst, x, y, (1, r)))()
+        return out
 
     def force3(u, kernel, group=0, rows=1):
         return lambda x, k3: k3_call(entries[f"k3 unroll {u}"], x, k3,
@@ -499,8 +653,18 @@ def main():
                 err = max(cs.check(f"K1 {name} F={f} kernel {k}",
                                    k1_call(entries["k1"], nbr, w, x, k), ref,
                                    dict(rtol=1e-5, atol=5e-5))
-                          for k in (0, 1, 2))
+                          for k in range(8))
                 emit(step="check K1", layout=name, f=f, max_abs_err=err)
+        for name, (src, dst, n) in k2_pairs.items():
+            for f, dtype in ((128, bf16), (64, bf16), (32, bf16),
+                             (128, f32), (8, bf16), (256, bf16)):
+                x, y = feats(n, f, dtype), feats(n, f, dtype)
+                ref = hk.sddmm_reference(src, dst, x, y)
+                err = max(cs.check(f"K2 {name} F={f} {k}", fn(x, y), ref,
+                                   cs.K2_TOL)
+                          for k, fn in k2_variants(src, dst, f, dtype).items())
+                emit(step="check K2", pairs=name, f=f, dtype=str(dtype),
+                     max_abs_err=err)
 
     if "paths" in groups:
         # K3 at F = 1 f32: every group and unroll of the slot kernel, the
@@ -582,6 +746,109 @@ def main():
                  output_rows=int(k3[0].shape[0]), f=f, dtype=str(dtype),
                  fastest=min(mean, key=mean.get), ms=mean, turns=raw)
 
+    if "split" in groups:
+        # K1 on fb-pages-food's slots (D = 114, one hub row of 114 live
+        # slots): the split kernel at each warps a row and at its launch's
+        # pick, beside the wide, packed and warp-per-row kernels and the
+        # dispatch, at every width K1 meets and the same slots tiled to 4
+        # and 16 times the rows; each kernel first held to the plain version
+        nbr0, w0, nx0 = k1_layouts["fb train"]
+        shapes = [("fb", nbr0, w0, f) for f in (4, 16, 24, 32, 64, 128, 192,
+                                                  256, 512, 768)]
+        shapes += [(f"fb x{r}", nbr0.repeat(r, 1), w0.repeat(r, 1), f)
+                   for r in (4, 16) for f in (16, 24, 192, 512)]
+        labels = {0: "warp per row", 1: "wide", 2: "packed", 3: "split",
+                  4: "split W=2", 5: "split W=4", 6: "split W=8",
+                  7: "split W=16"}
+        for name, nbr, w, f in shapes:
+            x = feats(nx0, f)
+            ref = hk.spmm_ell_reference(nbr, w, x)
+            fns = {"public": lambda: k1_call(entries["this spmm_ell"], nbr,
+                                             w, x)}
+            for k, label in labels.items():
+                if k != 2 or f // 4 <= 32:
+                    fns[label] = lambda k=k: k1_call(entries["k1"], nbr, w,
+                                                     x, k)
+            err = max(cs.check(f"K1 {name} F={f} {k}", fn(), ref,
+                               dict(rtol=1e-5, atol=5e-5))
+                      for k, fn in fns.items())
+            mean, raw = turns(fns)
+            emit(step="K1 split kernel", layout=name, nbr=list(nbr.shape),
+                 f=f, max_abs_err=err, fastest=min(mean, key=mean.get),
+                 ms=mean, turns=raw)
+
+    if "k2" in groups:
+        # K2's forward: the packed kernel at each rounds a warp beside the
+        # warp-per-edge kernel and the dispatch, on the GCN's pairs; each
+        # kernel first held to the plain version
+        for name, f, dtype in [("step", 128, bf16), ("test", 128, bf16),
+                               ("rank", 128, bf16), ("step", 64, bf16),
+                               ("step", 128, f32), ("step", 32, bf16),
+                               ("test", 32, bf16)]:
+            src, dst, n = k2_pairs[name]
+            x = feats(n, f, dtype)
+            ref = hk.sddmm_reference(src, dst, x, x)
+            variants = k2_variants(src, dst, f, dtype)
+            err = max(cs.check(f"K2 {name} F={f} {k}", fn(x, x), ref,
+                               cs.K2_TOL) for k, fn in variants.items())
+            mean, raw = turns({k: (lambda fn=fn: fn(x, x))
+                               for k, fn in variants.items()})
+            emit(step="K2 packed kernel", pairs=name, e=int(src.shape[0]),
+                 f=f, dtype=str(dtype), max_abs_err=err,
+                 fastest=min(mean, key=mean.get), ms=mean, turns=raw)
+
+    if "hoist" in groups:
+        # the GCN's steps scored by `sddmm_coo` (its backward sorts the
+        # step's incidences) and by the same kernels with every step's
+        # order built before the loop (`Ahead`), in turns (sorted, ahead,
+        # ahead, sorted) three times, each run from the same parameters
+        # and ending in a sync
+        from linkpred_tpu_torch.ops import sddmm as sd
+        from linkpred_tpu_torch.ops import spmm
+        from linkpred_tpu_torch.pipelines import gcn_scale as gs
+
+        cfg, problem = gcn
+        ops = k3_layouts["gcn"][0]
+        batches = torch.from_numpy(gs.batch_schedule(cfg, problem[1])).to(dev)
+
+        class Ahead(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, src, dst, h, order):
+                ctx.save_for_backward(src, dst, h, order)
+                return hk.sddmm(src, dst, h, h)
+
+            @staticmethod
+            def backward(ctx, g):
+                src, dst, h, order = ctx.saved_tensors
+                return None, None, hk.sddmm_grad(
+                    g.float().contiguous(), src, dst, h, None, order)[0], None
+
+        def steps_per_s(ahead):
+            params = gs.init_params(
+                cfg, torch.Generator().manual_seed(cfg.seed), dev)
+            opt = gs.adam(params, cfg.learning_rate)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            score = sd.sddmm_coo
+            if ahead:
+                orders = iter(hk.incidence_order(batches[:, 0], batches[:, 1]))
+                score = lambda s, d, h: Ahead.apply(  # noqa: E731
+                    s, d, h, next(orders)).to(h.dtype)
+            gs.train_steps(params, opt, batches, ops, cfg,
+                           spmm.spmm_bucketed_sym, score)
+            torch.cuda.synchronize()
+            return batches.shape[0] / (time.perf_counter() - t)
+
+        steps_per_s(False), steps_per_s(True)  # warm-up
+        rates = {"sorted": [], "ahead": []}
+        for _ in range(3):
+            for name in ("sorted", "ahead", "ahead", "sorted"):
+                rates[name].append(steps_per_s(name == "ahead"))
+        mean = {k: sum(v) / len(v) for k, v in rates.items()}
+        emit(step="K2 gradient order", steps=int(batches.shape[0]),
+             steps_per_s=mean, ahead_over_sorted=mean["ahead"]
+             / mean["sorted"], turns=rates)
+
     if "compare" in groups:
         # the other build against this one at every shape of the kernel
         # table: K3 ...
@@ -618,24 +885,19 @@ def main():
             emit(step="compare K1", layout=name, nbr=list(nbr.shape), f=f,
                  this_over_other=mean["this"] / mean["other"], ms=mean,
                  turns=raw)
-        # ... and K2 at the GCN step's shape (16,384 pairs, F = 128 bf16)
-        e, n = 16_384, 235_000
-        src, dst = (torch.randint(0, n, (e,), generator=gen, device=dev,
-                                  dtype=torch.int32) for _ in range(2))
-        table = feats(n, 128, bf16)
-
-        def k2(fn):
-            out = torch.empty(e, device=dev)
-            rc = fn(1, src.data_ptr(), dst.data_ptr(), table.data_ptr(),
-                    table.data_ptr(), out.data_ptr(), e, n, n, 128, _stream())
-            assert rc == 0, f"K2 launch refused: {rc}"
-            return out
-
-        mean, raw = turns({"other": lambda: k2(entries["other sddmm"]),
-                           "this": lambda: k2(entries["this sddmm"])})
-        emit(step="compare K2", pairs=e, f=128, dtype="torch.bfloat16",
-             this_over_other=mean["this"] / mean["other"], ms=mean,
-             turns=raw)
+        # ... and K2 at the GCN's shapes (a step's 16,384 pairs, the 51,200
+        # test pairs, a rank's pairs over its gathered rows; F = 128 bf16)
+        for name, (src, dst, n) in k2_pairs.items():
+            table = feats(n, 128, bf16)
+            mean, raw = turns({
+                "other": lambda: k2_call(entries["other sddmm"], src, dst,
+                                         table, table),
+                "this": lambda: k2_call(entries["this sddmm"], src, dst,
+                                        table, table)})
+            emit(step="compare K2", pairs=name, e=int(src.shape[0]), f=128,
+                 dtype="torch.bfloat16",
+                 this_over_other=mean["this"] / mean["other"], ms=mean,
+                 turns=raw)
     emit(step="done", estimated_readings=cs.ESTIMATED_READINGS[0])
 
 

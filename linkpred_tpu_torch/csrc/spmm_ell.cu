@@ -15,14 +15,18 @@
 // shares in warp order; in the packed kernel, slot group s of P = 32 / G adds
 // the slots s, s + P, s + 2P, ... of each chunk of 32 in that order, and the
 // P groups' sums are then added by a butterfly (groups 1, 2, ..., P / 2
-// apart).
+// apart); in the split kernel, each warp's chunks as in the packed kernel,
+// then the warps' sums in warp order.
 //
 // What bounds it on an H100 (80 GB HBM3, 3.35 TB/s; the bound counts each row
 // of x that a live slot names once, the live slots' index and weight and the
 // output, over that rate). 2 flops per gathered element, so the design is
 // about memory and, at these sizes, about latency and how much of the card is
 // at work: M = 620 output rows (the nodes of fb-pages-food) of up to 114-120
-// slots, few of them live.
+// slots, few of them live: one node has 134 edges, which leaves a train row
+// of 114 live slots; 11 more have 33-59, the other 608 at most 32 (mean 6.8).
+// That hub row sets the time of the whole launch: it is the longest chain of
+// dependent reads (its indices, then its rows, round after round).
 //   - One trial: x [3556, 24] f32 (rows of 96 B, 341 KB): 0.4 MB must move,
 //     0.0001 ms, below the 0.0007 ms of an empty launch.
 //   - The sweep, 32 trials: x [3556, 768] f32 (rows of 3 KB, 10.9 MB):
@@ -30,8 +34,16 @@
 //   - TwoWL at 50k nodes: nbr/w [50000, 32], x [351958, 24 or 16] f32 (rows
 //     of 96 or 64 B, each read once): 41.4 / 28.5 MB, 0.0124 / 0.0085 ms.
 //
-// Design: three kernels, chosen in `spmm_ell_f32` from the shape and
+// Design: four kernels, chosen in `spmm_ell_f32` from the shape and
 // alignment of x, the slot count D and the row count M.
+//   - Slot matrices of more than 32 columns over few rows, rows of whole
+//     16-byte groups (`spmm_ell_split_kernel`; see kSplitWaves): one block
+//     per (output row, tile of 4G columns), G lanes per slot as in the packed
+//     kernel, and up to 8 warps that each take a chunk of the row's slots (32
+//     at G <= 8, 8 at G = 32), so the hub row's 114 slots are read by 4-8
+//     warps, each with one read of its chunk's indices and one round of row
+//     reads, instead of four warps with up to four rounds each (the wide
+//     kernel). The warps' sums meet in shared memory, added in warp order.
 //   - Rows of 1-32 whole 16-byte groups where the wide kernel's split of the
 //     slots does not pay (`spmm_ell_packed_kernel`; see kPackedAnySlots): one
 //     warp per output row, G lanes per slot, G the row's 16-byte groups
@@ -52,7 +64,7 @@
 //     in warp order.
 //   - Any other shape (`spmm_ell_kernel`): one warp per output row, lanes
 //     across F in steps of 32; padding is skipped by a warp-uniform branch.
-// All three read 32 of a row's slots per coalesced load of nbr and w and
+// All four read up to 32 of a row's slots per coalesced load of nbr and w and
 // broadcast each with __shfl_sync. No atomics: each output element is written
 // once.
 
@@ -98,6 +110,36 @@ constexpr int64_t kWideMinRowBytes = 64;
 constexpr int64_t kPackedAnySlots = 32;
 constexpr int64_t kPackedAnyRowGroups = 4;
 constexpr int64_t kPackedManyRowGroups = 16;
+
+// Which slot matrices take the split kernel, and at how many warps a row:
+// W = the chunks of kStep slots a row has (D / kStep, rounded up to a power
+// of two), at most 8, then halved down to 4 while the warps launched (rows x
+// tiles x W) pass kSplitWaves times the warps the card holds at once; the
+// split kernel when D > kPackedAnySlots and the warps stay within that.
+// Device ms per call on an NVIDIA H100 80GB HBM3 at 700 W, each kernel
+// forced and timed in turns by kernel_turns.py (split at W = 2 / 4 / 8 / 16,
+// the rule's pick in brackets; wide / packed after the slash):
+//   fb-pages-food, [620, 114] (one row of 114 live slots, 11 of 33-59, the
+//     rest <= 32): F = 4 0.00250 / [0.00219] / 0.00229 / 0.00354, wide
+//     0.00474 / packed 0.00318; F = 16 0.00291 / [0.00227] / 0.00329 /
+//     0.00477, 0.00622 / 0.00499; F = 24 0.00419 / [0.00284] / 0.00259 /
+//     0.00466, 0.00634 / 0.00632; F = 32 0.00399 / [0.00282] / 0.00263 /
+//     0.00464, 0.00627 / 0.00646; F = 64 0.00817 / 0.00425 / [0.00292] /
+//     0.00490, 0.00630; F = 128 0.01066 / 0.00636 / [0.00415] / 0.00459,
+//     0.00644; F = 192 0.01133 / 0.00676 / [0.00527] / 0.00671, 0.00669;
+//     F = 256 0.01121 / 0.00677 / [0.00530] / 0.00678, 0.00674; F = 512
+//     0.01144 / [0.00699] / 0.00782 / 0.01113, 0.00804; F = 768 0.01193 /
+//     [0.00840] / 0.01044 / 0.01549, 0.00915;
+//   the same slots tiled to 2,480 rows: F = 16 0.00394 / [0.00423] /
+//     0.00730, packed 0.00516; F = 24 0.00461 / [0.00452] / 0.00553, packed
+//     0.00665; F = 192 0.01493 / 0.01186 / 0.01297, [wide 0.01028]; F = 512
+//     0.02000 / 0.01832, [wide 0.01552]; to 9,920 rows: packed (F = 16, 24)
+//     or wide (F = 192, 512) 1.3-3.1x faster than any W.
+// The rule's pick is the fastest kernel at 15 of these 18 shapes and within
+// 9 % at the other three (W = 8 at F = 24 and 32 on [620, 114], W = 2 at
+// F = 16 on 2,480 rows; W = 8 at F = 16 on [620, 114] would lose 45 %).
+constexpr int64_t kSplitWaves = 2;
+constexpr int64_t kSplitMaxWarps = 8;
 
 // 32 of a row's slots, one per lane, by one coalesced read of nbr and of w:
 // weight 0 for a slot past the row's end or with an index outside [0, nx)
@@ -295,6 +337,126 @@ void launch_packed(const int32_t* nbr, const float* w, const float* x,
           static_cast<int>(nx), static_cast<int>(f));
 }
 
+// Few rows with a long tail: a block of kWarps warps per (output row, tile of
+// 4 kGroup columns), kGroup lanes a slot as in the packed kernel. The row's
+// slots fall into chunks of kStep = (32 / kGroup) x kPackedUnroll (32 at
+// kGroup <= 8, 16 at 16, 8 at 32); warp v takes chunks v, v + kWarps, ...,
+// and the launch gives a row as many warps as it has chunks (up to 16), so
+// each warp reads its chunk's indices once and issues all of its row reads
+// in one round. A warp with no live slot in its chunk reads no row. Each
+// warp's slot groups meet in a butterfly as in the packed kernel; the warps'
+// partial sums meet in shared memory and are added in warp order, one column
+// a thread. No atomics.
+template <int kGroup, int kWarps>
+__global__ void __launch_bounds__(kWarp * kWarps)
+spmm_ell_split_kernel(const int32_t* __restrict__ nbr,
+                      const float* __restrict__ w,
+                      const float* __restrict__ x, float* __restrict__ out,
+                      int d, int nx, int f, int tiles) {
+  constexpr int kSlotsAtOnce = kWarp / kGroup;
+  constexpr int kPackedUnroll = kGroup < 8 ? kGroup : 8;
+  constexpr int kStep = kSlotsAtOnce * kPackedUnroll;  // divides 32
+  constexpr int kCols = 4 * kGroup;
+  __shared__ __align__(16) float part[kWarps][kCols];
+  const int row = blockIdx.x / tiles;
+  const int tile = blockIdx.x - row * tiles;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int s = lane / kGroup;
+  const int col = tile * kCols + (lane % kGroup) * 4;
+  const bool active = col < f;
+  const int32_t* nrow = nbr + static_cast<int64_t>(row) * d;
+  const float* wrow = w + static_cast<int64_t>(row) * d;
+  const float* xcol = x + (active ? col : 0);
+
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int d0 = warp * kStep; d0 < d; d0 += kWarps * kStep) {
+    int j = 0;
+    float wv = 0.0f;
+    if (lane < kStep) load_slots(nrow, wrow, d0 + lane, d, nx, j, wv);
+    if (__ballot_sync(kFullMask, wv != 0.0f) == 0u) continue;  // warp-uniform
+    uint4 r[kPackedUnroll];
+    float wk[kPackedUnroll];
+#pragma unroll
+    for (int u = 0; u < kPackedUnroll; ++u) {
+      const int k = u * kSlotsAtOnce + s;  // < kStep
+      const int jk = __shfl_sync(kFullMask, j, k);
+      wk[u] = __shfl_sync(kFullMask, wv, k);
+      r[u] = load16_if(xcol + static_cast<int64_t>(jk) * f,
+                       wk[u] != 0.0f && active);
+    }
+#pragma unroll
+    for (int u = 0; u < kPackedUnroll; ++u) {
+      float v[4];
+      FeatureIo<float>::unpack(r[u], v);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] = fmaf(wk[u], v[c], acc[c]);
+    }
+  }
+#pragma unroll
+  for (int off = kGroup; off < kWarp; off *= 2) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[c] += __shfl_xor_sync(kFullMask, acc[c], off);
+    }
+  }
+  if (s == 0) {
+    *reinterpret_cast<float4*>(&part[warp][(lane % kGroup) * 4]) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < kCols; c += kWarp * kWarps) {
+    float sum = part[0][c];
+#pragma unroll
+    for (int v = 1; v < kWarps; ++v) sum += part[v][c];
+    if (tile * kCols + c < f) {
+      out[static_cast<int64_t>(row) * f + tile * kCols + c] = sum;
+    }
+  }
+}
+
+template <int kGroup, int kWarps>
+void launch_split_warps(const int32_t* nbr, const float* w, const float* x,
+                        float* out, int64_t m, int64_t d, int64_t nx,
+                        int64_t f, cudaStream_t stream) {
+  const int64_t tiles = (f + 4 * kGroup - 1) / (4 * kGroup);
+  spmm_ell_split_kernel<kGroup, kWarps>
+      <<<static_cast<unsigned>(m * tiles), kWarp * kWarps, 0, stream>>>(
+          nbr, w, x, out, static_cast<int>(d), static_cast<int>(nx),
+          static_cast<int>(f), static_cast<int>(tiles));
+}
+
+// The split kernel's warps a row (see kSplitWaves): as many as a row has
+// chunks of the group's kStep slots, rounded up to a power of two, at most
+// kSplitMaxWarps, halved down to 4 while rows x tiles x warps passes
+// kSplitWaves times the card's resident warps. 0 when the split kernel does
+// not take [m, d] slots over f features (whole 16-byte groups).
+inline int split_warps(int64_t m, int64_t d, int64_t f) {
+  if (d <= kPackedAnySlots || f % 4 != 0) return 0;
+  int64_t group = 1;
+  while (group < 32 && group * 4 < f) group *= 2;
+  const int64_t step = kWarp / group * (group < 8 ? group : 8);
+  const int64_t tiles = (f + 4 * group - 1) / (4 * group);
+  const int64_t budget = kSplitWaves * resident_warps();
+  int64_t warps = 2;
+  while (warps < kSplitMaxWarps && warps * step < d) warps *= 2;
+  while (warps > 4 && m * tiles * warps > budget) warps /= 2;
+  return m * tiles * warps <= budget ? static_cast<int>(warps) : 0;
+}
+
+template <int kGroup>
+void launch_split(int warps, const int32_t* nbr, const float* w,
+                  const float* x, float* out, int64_t m, int64_t d,
+                  int64_t nx, int64_t f, cudaStream_t stream) {
+  if (warps <= 2) {
+    launch_split_warps<kGroup, 2>(nbr, w, x, out, m, d, nx, f, stream);
+  } else if (warps <= 4) {
+    launch_split_warps<kGroup, 4>(nbr, w, x, out, m, d, nx, f, stream);
+  } else {
+    launch_split_warps<kGroup, 8>(nbr, w, x, out, m, d, nx, f, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -315,6 +477,23 @@ int spmm_ell_f32(const int32_t* nbr, const float* w, const float* x,
       groups <= kWarp &&
       (d <= kPackedAnySlots || groups <= kPackedAnyRowGroups ||
        (many_rows && groups <= kPackedManyRowGroups));
+  const int warps = split_warps(m, d, f);
+  if (warps > 0 && wide_aligned(f, sizeof(float), 16, {x, out})) {
+    if (groups <= 1) {
+      launch_split<1>(warps, nbr, w, x, out, m, d, nx, f, s);
+    } else if (groups <= 2) {
+      launch_split<2>(warps, nbr, w, x, out, m, d, nx, f, s);
+    } else if (groups <= 4) {
+      launch_split<4>(warps, nbr, w, x, out, m, d, nx, f, s);
+    } else if (groups <= 8) {
+      launch_split<8>(warps, nbr, w, x, out, m, d, nx, f, s);
+    } else if (groups <= 16) {
+      launch_split<16>(warps, nbr, w, x, out, m, d, nx, f, s);
+    } else {
+      launch_split<32>(warps, nbr, w, x, out, m, d, nx, f, s);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   if (packed && wide_aligned(f, sizeof(float), 16, {x, out})) {
     if (groups <= 1) {
       launch_packed<1>(nbr, w, x, out, m, d, nx, f, s);

@@ -10,14 +10,20 @@ kernel; `LAUNCHES_BY_WIDTH` counts the same launches by feature width.
     K1 spmm_ell       csrc/spmm_ell.cu       ELL SpMM, f32
     K3 spmm_bucketed  csrc/spmm_bucketed.cu  bucketed ELL SpMM, f32 or bf16
     K2 sddmm          csrc/sddmm.cu          per-edge dot products -> f32
+       sddmm_grad     csrc/sddmm.cu          their gradient, f32 or bf16
 
 `spmm_ell_auto` and `sddmm_auto` are the reference's dispatch entries: thin
 calls of K1 and K2 that build the kernels' operands.
 
-K1 and K3 choose a kernel by the shape and alignment of `x` (and K1 by the
-slot count D too) inside their launch functions:
+K1, K3 and K2 choose a kernel by the shape and alignment of `x` (and K1 by
+the slot count D and the row count M too) inside their launch functions:
 
-    K1  packed     rows of 1-32 whole 16-byte groups when D <= 32, or at most
+    K1  split      rows of whole 16-byte groups when D > 32 and the rows are
+                   few (fb-pages-food's [620, 114]): a block per (row, tile),
+                   G lanes a slot, a warp per chunk of a row's slots, so a
+                   long row's reads go out in one round; the warps' sums meet
+                   in shared memory
+        packed     rows of 1-32 whole 16-byte groups when D <= 32, or at most
                    4 groups, or more rows than the card holds warps and at
                    most 16 groups: a warp per row, G lanes a slot, 32 / G
                    slots gathered at once
@@ -35,6 +41,15 @@ slot count D too) inside their launch functions:
         wide       other rows of whole 16-byte groups: a warp per (row,
                    512-byte tile)
         warp/row   any other shape, lanes across F
+    K2  packed     rows of whole 16-byte groups: G lanes an edge (16 at F = 128
+                   bf16), 32 / G edges a round, two rounds a warp, the warp's
+                   indices read once
+        warp/edge  any other shape
+        gradient   the incidences sorted by receiving row
+                   (`incidence_order`) in windows of 16: a group of G lanes
+                   a window sums each row's piece in sorted order and writes
+                   the rows whose runs it holds; a second pass adds the
+                   pieces of runs that span windows, in window order
 
 Every path sums in a fixed order, so two launches on the same inputs agree
 bit for bit.
@@ -50,7 +65,7 @@ import torch
 
 from linkpred_tpu_torch.kernels import build
 
-LAUNCHES = {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0}
+LAUNCHES = {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0, "sddmm_grad": 0}
 # the same launches by kernel and feature width, under keys "<kernel> F=<f>"
 LAUNCHES_BY_WIDTH: dict[str, int] = {}
 
@@ -58,6 +73,7 @@ LAUNCHES_BY_WIDTH: dict[str, int] = {}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FEATURE_DTYPES = tuple(_DTYPE_CODES)
 MAX_BUCKETS = 64  # kMaxBuckets of csrc/spmm_bucketed.cu
+GRAD_WINDOW = 16  # kGradWindow of csrc/sddmm.cu
 _INT32_MAX = 2**31 - 1
 
 
@@ -86,26 +102,30 @@ def _check_int32_range(kernel: str, *sizes: int) -> None:
 
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# kernel -> (C entry point of csrc/<kernel>.cu, its argument types: pointers
-# and the stream as void*)
+# kernel -> (C entry point, its argument types: pointers and the stream as
+# void*), in csrc/<kernel>.cu unless _SOURCES names another source
 _ENTRY_POINTS = {
     "spmm_ell": ("spmm_ell_f32", [_P] * 4 + [_I64] * 4 + [_P]),
     "spmm_bucketed": ("spmm_bucketed", [_I32] + [_P] * 6 + [_I64] * 4
                       + [_P, _P]),
     "sddmm": ("sddmm", [_I32] + [_P] * 5 + [_I64] * 4 + [_P]),
+    "sddmm_grad": ("sddmm_grad", [_I32] + [_P] * 11 + [_I64] * 4
+                   + [_I32, _P]),
     "empty_launch": ("empty_launch", [_P]),
 }
+_SOURCES = {"sddmm_grad": "sddmm"}
 
 
 @functools.cache
 def _entry(name: str):
-    """`csrc/<name>.cu` built and loaded: its launch function and its
-    `<name>_error_string`, with their types declared."""
-    lib = build.library(name)
+    """Kernel `name`'s source built and loaded: its launch function and the
+    source's `<source>_error_string`, with their types declared."""
+    source = _SOURCES.get(name, name)
+    lib = build.library(source)
     symbol, argtypes = _ENTRY_POINTS[name]
     fn = getattr(lib, symbol)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
+    err = getattr(lib, f"{source}_error_string")
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     return fn, err
 
@@ -344,3 +364,105 @@ def sddmm_auto(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
     return sddmm(src.to(torch.int32).contiguous(),
                  dst.to(torch.int32).contiguous(), x.contiguous(),
                  y.contiguous())
+
+
+def incidence_order(src: torch.Tensor, dst: torch.Tensor,
+                    two_tables: bool = False) -> torch.Tensor:
+    """The order in which K2's gradient takes the pairs' 2E incidences
+    (`i < E`: row `src[i]` receives `g[i] * y[dst[i]]`; `E + e`: row
+    `dst[e]` receives `g[e] * x[src[e]]`), from `src`, `dst` [..., E]:
+    sorted by receiving row, stably, so a row's incidences keep their order.
+    With `two_tables` the first E positions are the src incidences sorted by
+    src and the next E the dst ones sorted by dst (dx and dy apart). int32
+    [..., 2E]; a leading dimension sorts each batch of pairs on its own, so
+    the orders of many steps build at once."""
+    if two_tables:
+        e = src.shape[-1]
+        order = torch.cat([torch.argsort(src, dim=-1, stable=True),
+                           e + torch.argsort(dst, dim=-1, stable=True)], -1)
+    else:
+        order = torch.argsort(torch.cat([src, dst], -1), dim=-1, stable=True)
+    return order.to(torch.int32)
+
+
+def sddmm_grad_reference(g: torch.Tensor, src: torch.Tensor,
+                         dst: torch.Tensor, x: torch.Tensor,
+                         y: torch.Tensor | None = None):
+    """Plain PyTorch gradient of K2 for the cotangent `g` [E]: `(dx, dy)`
+    with `dx[n] = sum_{e: src[e] = n} g[e] * y[dst[e]]` and `dy[n] = sum_{e:
+    dst[e] = n} g[e] * x[src[e]]`, summed in f32 by `index_add_` and rounded
+    once to the tables' type; with `y` None (one table) `(dx + dy, None)`.
+    A pair with an index outside its table contributes nothing, as it scored
+    0."""
+    table = x if y is None else y
+    keep = ((src >= 0) & (src < x.shape[0]) & (dst >= 0)
+            & (dst < table.shape[0]))
+    s = torch.where(keep, src, 0).long()
+    d = torch.where(keep, dst, 0).long()
+    gk = g.float()[:, None]
+
+    def term(index, rows):
+        # a dropped pair's row may hold NaN: select, do not multiply by 0
+        return index, torch.where(keep[:, None], gk * rows.float(), 0.0)
+
+    into_x = term(s, table.index_select(0, d))
+    into_y = term(d, x.index_select(0, s))
+    f = x.shape[1]
+    if y is None:
+        out = torch.zeros((x.shape[0], f), dtype=torch.float32,
+                          device=x.device)
+        out.index_add_(0, torch.cat([into_x[0], into_y[0]]),
+                       torch.cat([into_x[1], into_y[1]]))
+        return out.to(x.dtype), None
+    dx = torch.zeros((x.shape[0], f), dtype=torch.float32, device=x.device)
+    dy = torch.zeros((y.shape[0], f), dtype=torch.float32, device=x.device)
+    return (dx.index_add_(0, *into_x).to(x.dtype),
+            dy.index_add_(0, *into_y).to(y.dtype))
+
+
+def sddmm_grad(g: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+               x: torch.Tensor, y: torch.Tensor | None = None,
+               order: torch.Tensor | None = None):
+    """K2's gradient for the cotangent `g` [E] float32 of `sddmm(src, dst,
+    x, y)`: `(dx, dy)` of the tables' type, or `(dx + dy, None)` written as
+    one table when `y` is None (`x` scored against itself). `order` [2E]
+    int32 is `incidence_order(src, dst, y is not None)`, built here when
+    not given. CUDA tensors zero the outputs and run the kernel in
+    `csrc/sddmm.cu` (built at first use); CPU tensors run
+    `sddmm_grad_reference`."""
+    table = x if y is None else y
+    if _on_cpu(g, src, dst, x, table):
+        return sddmm_grad_reference(g, src, dst, x, y)
+    two = y is not None
+    if order is None:
+        order = incidence_order(src, dst, two)
+    _check_cuda("sddmm_grad", x.device, (
+        ("g", g, (torch.float32,), 1), ("src", src, (torch.int32,), 1),
+        ("dst", dst, (torch.int32,), 1), ("order", order, (torch.int32,), 1),
+        ("x", x, _FEATURE_DTYPES, 2), ("y", table, (x.dtype,), 2)))
+    e = src.shape[0]
+    if (dst.shape != src.shape or g.shape != src.shape
+            or order.shape != (2 * e,) or table.shape[1] != x.shape[1]):
+        raise ValueError(f"sddmm_grad: g {tuple(g.shape)}, src "
+                         f"{tuple(src.shape)}, dst {tuple(dst.shape)}, order "
+                         f"{tuple(order.shape)}, x {tuple(x.shape)}, y "
+                         f"{tuple(table.shape)}")
+    (nx, f), ny = x.shape, table.shape[0]
+    _check_int32_range("sddmm_grad", 2 * e, nx, ny, f)
+    dx = torch.zeros_like(x)
+    dy = torch.zeros_like(table) if two else None
+    if e == 0 or f == 0:
+        return dx, dy
+    # the two passes' scratch: a window's piece sums, state and run row
+    windows = -(-2 * e // GRAD_WINDOW)
+    part = torch.empty((windows, 2, f), dtype=torch.float32, device=x.device)
+    state = torch.empty(windows, dtype=torch.int32, device=x.device)
+    run_row = torch.empty(windows, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("sddmm_grad", f, _DTYPE_CODES[x.dtype], order.data_ptr(),
+                src.data_ptr(), dst.data_ptr(), g.data_ptr(), x.data_ptr(),
+                table.data_ptr(), dx.data_ptr(),
+                None if dy is None else dy.data_ptr(), part.data_ptr(),
+                state.data_ptr(), run_row.data_ptr(), e, nx, ny, f, int(two),
+                _stream(x.device))
+    return dx, dy

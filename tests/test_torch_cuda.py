@@ -245,7 +245,7 @@ def test_forward_trials_ell_matches_plan(cuda, fb_data):
     # K3 backward launches (K1's backward is a gather)
     assert n_e == {"spmm_ell": 2 * cfg.depth1,
                    "spmm_bucketed": 2 * (1 + cfg.depth2) + cfg.depth2,
-                   "sddmm": 0}, n_e
+                   "sddmm": 0, "sddmm_grad": 0}, n_e
     assert set(n_p.values()) == {0}
     # random-init logits reach ~100, whose f32 sums round at ~1e-5
     torch.testing.assert_close(l_e, l_p, rtol=1e-5,
@@ -416,8 +416,11 @@ def test_gcn_step_on_kernels_matches_plain(cuda, gcn_problem):
         results.append((loss.detach(), {k: p.grad for k, p in params.items()},
                          moved))
     (l_k, g_k, moved_k), (l_p, g_p, moved_p) = results
-    assert moved_k == {"spmm_ell": 0, "spmm_bucketed": 4, "sddmm": 1}
-    assert moved_p == {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0}
+    # the score's backward is K2's gradient kernel
+    assert moved_k == {"spmm_ell": 0, "spmm_bucketed": 4, "sddmm": 1,
+                       "sddmm_grad": 1}
+    assert moved_p == {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0,
+                       "sddmm_grad": 0}
     torch.testing.assert_close(l_k, l_p, rtol=1e-4, atol=1e-6)
     for k in g_k:
         torch.testing.assert_close(g_k[k], g_p[k], rtol=1e-4, atol=1e-6,
@@ -940,7 +943,8 @@ def test_dispatch_entries_launch_k1_and_k2(cuda):
                                hk.sddmm_reference(src, dst, x, x),
                                rtol=1e-5, atol=1e-4)
     launched = {k: hk.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {"spmm_ell": 2, "spmm_bucketed": 1, "sddmm": 1}
+    assert launched == {"spmm_ell": 2, "spmm_bucketed": 1, "sddmm": 1,
+                        "sddmm_grad": 0}
 
 
 @pytest.mark.parametrize("agg", ["plan", "ell"])
@@ -1063,3 +1067,201 @@ def test_distributed_node2vec_on_the_card(cuda, tmp_path):
             np.testing.assert_array_equal(w[:, 0], np.tile(np.arange(n), 20))
             a, b = w[:, :-1].reshape(-1), w[:, 1:].reshape(-1)
             assert bool((has[a, b] | ((a == b) & (g.degree[a] == 0))).all())
+
+
+# ---------------------------------------------------------------------------
+# K2 redesigned: the packed forward (G lanes an edge) and the gradient
+# kernel; K1's split kernel for few rows with a long tail
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+            torch.bfloat16: dict(rtol=2**-7, atol=1e-6)}
+
+
+def _pairs(e, n, dev, seed, lo=-1, hi=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hi = n + 1 if hi is None else hi
+    return [torch.randint(lo, hi, (e,), generator=gen, device=dev,
+                          dtype=torch.int32) for _ in range(2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("f", [8, 16, 24, 64, 128, 256])
+@pytest.mark.parametrize("e", [1, 16_384])
+def test_sddmm_packed_forward(cuda, e, f, dtype):
+    """K2's packed kernel (rows of whole 16-byte groups: G lanes an edge,
+    two reads a lane at F = 256 f32) and, from offset storage, the
+    warp-per-edge kernel, with indices outside the tables, against the plain
+    version; two launches agree bit for bit."""
+    n = 20_000
+    src, dst = _pairs(e, n, cuda, e + f)
+    x, y = _x(n, f, dtype, cuda, 1), _x(n, f, dtype, cuda, 2)
+    ref = hk.sddmm_reference(src, dst, x, y)
+    before = hk.LAUNCHES["sddmm"]
+    runs = [hk.sddmm(src, dst, x, y) for _ in range(2)]
+    unaligned = hk.sddmm(src, dst, _offset_copy(x), _offset_copy(y))
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["sddmm"] == before + 3
+    for got in (runs[0], unaligned):
+        assert got.dtype == torch.float32 and got.shape == (e,)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+    assert torch.equal(runs[0], runs[1])
+
+
+def _grad_inputs(case, dtype, dev, f=128, n=20_000, e=16_384):
+    """(g, src, dst, x, y or None) for K2's gradient: `one` / `two` tables,
+    `hub` (node 7 named by 500 pairs at both ends, two tables), `outside`
+    (indices outside the tables; a NaN row that only such pairs name)."""
+    src, dst = _pairs(e, n, dev, 7, 0, n)
+    if case == "hub":
+        at = torch.arange(e, device=dev)
+        src = torch.where(at % 64 == 0, 7, src).to(torch.int32)
+        dst = torch.where(at % 66 == 1, 7, dst).to(torch.int32)
+    x, y = _x(n, f, dtype, dev, 1), _x(n, f, dtype, dev, 2)
+    if case == "outside":
+        src, dst = _pairs(e, n, dev, 8)
+        x = torch.cat([x, torch.full((1, f), float("nan"), device=dev,
+                                     dtype=dtype)])
+        # row n of x (NaN) is named only by pairs whose dst is outside y
+        src = torch.where(src >= n, -1, src)
+        src = torch.where(dst >= n, n, src).to(torch.int32)
+    g = torch.randn(e, generator=torch.Generator(device=dev).manual_seed(9),
+                    device=dev)
+    return g, src, dst, x, (None if case == "one" else y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ["one", "two", "hub", "outside"])
+@pytest.mark.parametrize("f", [128, 64, 33])
+def test_sddmm_grad_matches_plain(cuda, f, case, dtype):
+    """K2's gradient kernel against its plain version (f32 1e-5; bf16: both
+    sum in f32 and round once, so one ulp): one table (the GCN's case) and
+    two, a hub of 500 pairs, indices outside the tables and a NaN row only
+    they name, rows of 16-byte groups and not (F = 33); two launches agree
+    bit for bit, with the order built ahead or by the wrapper."""
+    g, src, dst, x, y = _grad_inputs(case, dtype, cuda, f)
+    ref = hk.sddmm_grad_reference(g, src, dst, x, y)
+    before = hk.LAUNCHES["sddmm_grad"]
+    order = hk.incidence_order(src, dst, y is not None)
+    runs = [hk.sddmm_grad(g, src, dst, x, y),
+            hk.sddmm_grad(g, src, dst, x, y, order)]
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["sddmm_grad"] == before + 2
+    for got, want in zip(runs[0], ref):
+        if want is None:
+            assert got is None
+            continue
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **GRAD_TOL[dtype])
+    assert all(a is None or torch.equal(a, b)
+               for a, b in zip(runs[0], runs[1]))
+
+
+def test_sddmm_grad_no_pairs(cuda):
+    x = _x(5, 8, torch.bfloat16, cuda)
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = hk.LAUNCHES["sddmm_grad"]
+    dx, dy = hk.sddmm_grad(torch.zeros(0, device=cuda), empty, empty, x, x)
+    assert not dx.any() and not dy.any() and dx.dtype == torch.bfloat16
+    assert hk.LAUNCHES["sddmm_grad"] == before
+
+
+def _straddle_inputs(e, two_tables, dtype, dev, f, n=20_000):
+    """(g, src, dst, x, y or None) with E odd, so the 2E sorted incidences
+    end in a partial window of 16 and, with two tables, the window at
+    position E holds the end of dx's incidences and the start of dy's:
+    node n - 1 (sorted last) is named by every 33rd src and node 0 (sorted
+    first) by every 33rd dst, so at E = 16,385 dx's last run and dy's first
+    (~497 incidences each) both cross that window, and with one table row
+    n - 1's run ends in the partial window."""
+    src, dst = _pairs(e, n, dev, e, 0, n)
+    at = torch.arange(e, device=dev)
+    src = torch.where(at % 33 == 0, n - 1, src).to(torch.int32)
+    dst = torch.where(at % 33 == 1, 0, dst).to(torch.int32)
+    x, y = _x(n, f, dtype, dev, 3), _x(n, f, dtype, dev, 4)
+    g = torch.randn(e, generator=torch.Generator(device=dev).manual_seed(e),
+                    device=dev)
+    return g, src, dst, x, (y if two_tables else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("f", [128, 33])
+@pytest.mark.parametrize("two_tables", [False, True],
+                         ids=["one table", "two tables"])
+@pytest.mark.parametrize("e", [1, 7, 16_385])
+def test_sddmm_grad_partial_and_straddling_windows(cuda, e, two_tables, f,
+                                                   dtype):
+    """K2's gradient where 2E is not a multiple of its 16-position window
+    (E = 1, 7, 16,385): the partial last window, and with two tables the
+    window that holds both halves, crossed by a hub's run on each side;
+    against the plain version (f32 1e-5, bf16 one ulp), rows of 16-byte
+    groups (F = 128) and not (F = 33); two launches agree bit for bit."""
+    g, src, dst, x, y = _straddle_inputs(e, two_tables, dtype, cuda, f)
+    ref = hk.sddmm_grad_reference(g, src, dst, x, y)
+    before = hk.LAUNCHES["sddmm_grad"]
+    runs = [hk.sddmm_grad(g, src, dst, x, y) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["sddmm_grad"] == before + 2
+    for got, again, want in zip(*runs, ref):
+        if want is None:
+            assert got is None and again is None
+            continue
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **GRAD_TOL[dtype])
+        assert torch.equal(got, again)
+
+
+def test_sddmm_coo_backward_on_the_gradient_kernel(cuda):
+    """`sddmm_coo`'s backward launches K2's gradient kernel once (one table:
+    one gradient), agrees with the plain version, and is the same bit for
+    bit from run to run."""
+    g, src, dst, x, _ = _grad_inputs("hub", torch.bfloat16, cuda)
+    grads = []
+    for _ in range(3):
+        xx = x.clone().requires_grad_()
+        before = dict(hk.LAUNCHES)
+        (sd.sddmm_coo(src, dst, xx).float() * g).sum().backward()
+        torch.cuda.synchronize()
+        assert hk.LAUNCHES["sddmm"] == before["sddmm"] + 1
+        assert hk.LAUNCHES["sddmm_grad"] == before["sddmm_grad"] + 1
+        grads.append(xx.grad)
+    # the score is rounded to bf16, so the kernel's cotangent is g rounded
+    ref = hk.sddmm_grad_reference(g.to(torch.bfloat16).float(), src, dst,
+                                  x)[0]
+    torch.testing.assert_close(grads[0].float(), ref.float(),
+                               **GRAD_TOL[torch.bfloat16])
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])
+
+
+@pytest.mark.parametrize("f", [4, 16, 24, 192, 512, 768])
+@pytest.mark.parametrize("d", [114, 200, 512])
+def test_spmm_ell_split_kernel(cuda, d, f):
+    """K1 on few rows (620) with one long row of `d` live slots among short
+    ones (1-32, pads trailing), the layout of fb-pages-food's 1-WL slots that
+    the split kernel takes, with indices outside [0, NX) and zero-weight
+    slots naming a NaN row, against the plain version (f32 sums of up to
+    512 products in another order: atol 5e-5); two launches agree bit for
+    bit."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + f)
+    nx, m_ = 3556, 620
+    nbr = torch.randint(-2, nx + 3, (m_, d), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    w = torch.randn((m_, d), generator=gen, device=cuda)
+    live = torch.randint(1, 33, (m_, 1), generator=gen, device=cuda)
+    live[11] = d
+    pad = torch.arange(d, device=cuda)[None, :] >= live
+    nbr[pad], w[pad] = 0, 0.0
+    w[nbr == 0] = 0.0
+    w[::5] = 0.0
+    x = _x(nx, f, torch.float32, cuda, f)
+    x[0] = float("nan")
+    ref = hk.spmm_ell_reference(nbr, w, x)
+    before = hk.LAUNCHES["spmm_ell"]
+    runs = [hk.spmm_ell(nbr, w, x) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["spmm_ell"] == before + 2
+    assert torch.isfinite(runs[0]).all() and (runs[0][::5] == 0).all()
+    torch.testing.assert_close(runs[0], ref, rtol=1e-5, atol=5e-5)
+    assert torch.equal(runs[0], runs[1])

@@ -346,6 +346,27 @@ def test_sddmm_work_by_hand():
     assert nbytes == 3 * 16 * 2 + 5 * (4 + 4) + 5 * 4
 
 
+def test_sddmm_grad_work_by_hand():
+    """K2's gradient: the outputs written in full, the rows that pairs
+    inside both tables name read once from the table the gradient reads,
+    the order (2E), both index arrays and g read once."""
+    src = torch.tensor([0, 1, 1, 7, 2], dtype=torch.int32)
+    dst = torch.tensor([1, 1, 3, 0, -1], dtype=torch.int32)
+    g = torch.ones(5)
+    x = torch.ones((4, 16), dtype=torch.bfloat16)
+    y = torch.ones((5, 16), dtype=torch.bfloat16)
+    # pairs inside both tables: (0, 1), (1, 1), (1, 3): dx reads y rows 1,
+    # 3; dy reads x rows 0, 1
+    nbytes, flops = cs.sddmm_grad_work(g, src, dst, x, y)
+    assert nbytes == ((4 + 5) * 16 * 2 + (2 + 2) * 16 * 2 + 2 * 5 * 4
+                      + 5 * (4 + 4 + 4))
+    assert flops == 2 * 2 * 3 * 16
+    # one table: dh written once, rows 0, 1, 3 read once
+    nbytes, _ = cs.sddmm_grad_work(g, src, dst, x)
+    assert nbytes == (4 * 16 * 2 + 3 * 16 * 2 + 2 * 5 * 4
+                      + 5 * (4 + 4 + 4))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_library_matrices_match_the_plain_versions(seed):
     """`bucketed_csr` and `ell_csr` on the layouts the port builds: a graph's
@@ -374,6 +395,29 @@ def test_library_matrices_match_the_plain_versions(seed):
     xe, k3e = cs.edge_case_operands(cops.k3, xs)
     got = hk.spmm_bucketed(xe, *k3e)
     assert torch.isfinite(got).all() and not got[3].any()
+
+
+@pytest.mark.parametrize("case", ["random", "hub and repeats", "outside"])
+def test_gradient_library_matrix_matches_the_plain_gradient(case):
+    """`sddmm_grad_csr`, the library yardstick of K2's one-table gradient:
+    `torch.sparse.mm` of it with the table is the plain gradient, with a
+    hub named by a third of the pairs and every pair twice, and with pairs
+    outside the table (left out, as they contribute nothing)."""
+    rng = np.random.default_rng(21)
+    n, e = 40, 300
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    if case == "hub and repeats":
+        src[::3] = 5
+        src, dst = np.tile(src[: e // 2], 2), np.tile(dst[: e // 2], 2)
+    if case == "outside":
+        src[::7], dst[3::11] = -1, n
+    g = torch.from_numpy(rng.standard_normal(e).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((n, 12)).astype(np.float32))
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    torch.testing.assert_close(
+        torch.sparse.mm(cs.sddmm_grad_csr(g, s, d, n), x),
+        hk.sddmm_grad_reference(g, s, d, x)[0], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("captures, expect, estimated", [

@@ -128,6 +128,31 @@ class TestSpmmEll:
                                     torch.from_numpy(x))
         np.testing.assert_allclose(_np(got), ref, rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("f", [24, 192, 512])
+    def test_hub_layout_matches_pallas(self, f):
+        """fb-pages-food's 1-WL layout in miniature, the shape K1's split
+        kernel takes: one hub row of 114 live slots among rows of 1-32
+        (pads trailing, weight 0 on index 0), D = 114, at the one trial's
+        F = 24, a rank's 192 and the sweep's 512: the plain version against
+        the Pallas kernel in interpret mode."""
+        rng = np.random.default_rng(f)
+        m, d, nx = 40, 114, 300
+        live = rng.integers(1, 33, m)
+        live[7] = d
+        nbr = rng.integers(0, nx, (m, d)).astype(np.int32)
+        w = rng.standard_normal((m, d)).astype(np.float32)
+        pad = np.arange(d)[None, :] >= live[:, None]
+        nbr[pad], w[pad] = 0, 0.0
+        x = rng.standard_normal((nx, f)).astype(np.float32)
+        ref = np.asarray(jpk.spmm_ell_pallas(
+            jnp.asarray(nbr), jnp.asarray(w), jnp.asarray(x),
+            block_rows=8, block_feats=128, interpret=True))
+        got = hk.spmm_ell_reference(torch.from_numpy(nbr), torch.from_numpy(w),
+                                    torch.from_numpy(x))
+        np.testing.assert_allclose(_np(got), ref, rtol=1e-5, atol=5e-5)
+        np.testing.assert_allclose(_np(got), _dense_ell(nbr, w, x),
+                                   rtol=1e-5, atol=5e-5)
+
     @pytest.mark.parametrize("m,d,nx,f", [(40, 1, 30, 7), (25, 6, 11, 33),
                                           (12, 4, 5, 1)])
     def test_ragged_against_loop(self, m, d, nx, f):

@@ -323,3 +323,164 @@ def test_sddmm_coo_bf16_matches_jax():
     assert ref.dtype == jnp.bfloat16
     np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32),
                                rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# K2's gradient (`hopper_kernels.sddmm_grad`; its plain version on the CPU)
+# against `jax.vjp` of the reference's `sddmm_coo`
+# ---------------------------------------------------------------------------
+
+
+def _grad_case(n, e, f, seed, hub=None, repeats=False):
+    """Pairs, two tables and a cotangent from `seed`; `hub` names node 3 in
+    that many pairs (at either end), `repeats` makes every pair appear
+    twice."""
+    src, dst, x, y = _sddmm_inputs(n, e, f, seed)
+    rng = np.random.default_rng(seed + 1)
+    if hub:
+        at = rng.choice(e, hub, replace=False)
+        src[at[: hub // 2]] = 3
+        dst[at[hub // 2:]] = 3
+    if repeats:
+        src, dst = np.tile(src[: e // 2], 2), np.tile(dst[: e // 2], 2)
+    g = rng.standard_normal(len(src)).astype(np.float32)
+    return src, dst, x, y, g
+
+
+def _jax_grad(src, dst, x, y, g, two_tables):
+    """`jax.vjp` of the reference's `sddmm_coo` in f32: (dx, dy or None)."""
+    if two_tables:
+        _, vjp = jax.vjp(lambda a, b: jsd.sddmm_coo(src, dst, a, b),
+                         jnp.asarray(x), jnp.asarray(y))
+        return tuple(np.asarray(v) for v in vjp(jnp.asarray(g)))
+    _, vjp = jax.vjp(lambda a: jsd.sddmm_coo(src, dst, a), jnp.asarray(x))
+    return np.asarray(vjp(jnp.asarray(g))[0]), None
+
+
+def _port_grad(src, dst, x, y, g, two_tables, dtype=torch.float32):
+    xt = torch.from_numpy(x).to(dtype)
+    yt = torch.from_numpy(y).to(dtype) if two_tables else None
+    return hk.sddmm_grad(torch.from_numpy(g), torch.from_numpy(src),
+                         torch.from_numpy(dst), xt, yt)
+
+
+@pytest.mark.parametrize("two_tables", [False, True],
+                         ids=["one table", "two tables"])
+@pytest.mark.parametrize("case", ["random", "hub and repeats"])
+def test_sddmm_grad_matches_jax_vjp(two_tables, case):
+    """f32: the plain gradient against `jax.vjp` of the reference, with
+    random pairs, and with a hub named by 400 of 1,000 pairs and every pair
+    repeated; with one table both ends' terms land in one gradient."""
+    if case == "random":
+        src, dst, x, y, g = _grad_case(60, 700, 24, 11)
+    else:
+        src, dst, x, y, g = _grad_case(60, 1000, 24, 12, hub=400,
+                                       repeats=True)
+    dx, dy = _port_grad(src, dst, x, y, g, two_tables)
+    jx, jy = _jax_grad(src, dst, x, y, g, two_tables)
+    assert dx.dtype == torch.float32 and dx.shape == x.shape
+    np.testing.assert_allclose(_np(dx), jx, rtol=RTOL, atol=ATOL * 10)
+    if two_tables:
+        np.testing.assert_allclose(_np(dy), jy, rtol=RTOL, atol=ATOL * 10)
+    else:
+        assert dy is None
+
+
+@pytest.mark.parametrize("two_tables", [False, True],
+                         ids=["one table", "two tables"])
+def test_sddmm_grad_bf16_matches_jax_vjp(two_tables):
+    """bf16 tables: the port sums in f32 and rounds once to bf16; the
+    reference's vjp, taken in f32 on the same bf16 values, is rounded once
+    to bf16 too. Compared in f32 within one bf16 ulp (rtol 2^-7), atol 1e-2
+    where a sum cancels to near 0; F = 128, the GCN's width."""
+    src, dst, x, y, g = _grad_case(64, 600, 128, 13, hub=150)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    yb = torch.from_numpy(y).to(torch.bfloat16)
+    dx, dy = _port_grad(src, dst, xb.float().numpy(), yb.float().numpy(), g,
+                        two_tables, torch.bfloat16)
+    jx, jy = _jax_grad(src, dst, xb.float().numpy(), yb.float().numpy(), g,
+                       two_tables)
+    assert dx.dtype == torch.bfloat16
+    for got, ref in ((dx, jx), (dy, jy)):
+        if ref is None:
+            assert got is None
+            continue
+        once = torch.tensor(ref).to(torch.bfloat16).float().numpy()
+        np.testing.assert_allclose(_np(got), once, rtol=BF16_RTOL,
+                                   atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("two_tables", [False, True],
+                         ids=["one table", "two tables"])
+def test_sddmm_grad_no_pairs_and_outside_indices(two_tables):
+    """E = 0 gives zero gradients; a pair with an index outside its table
+    scored 0 and contributes nothing (the reference's gather would clamp or
+    wrap such an index, so its cotangent is zeroed there). With two tables
+    x has one row more than y, a NaN row that only such pairs name."""
+    src, dst, x, y, g = _grad_case(40, 300, 16, 14)
+    empty = np.zeros(0, np.int32)
+    dx, dy = _port_grad(empty, empty, x, y, np.zeros(0, np.float32),
+                        two_tables)
+    assert not _np(dx).any() and (dy is None or not _np(dy).any())
+    src[::7], dst[3::11] = -1, 40
+    if two_tables:
+        src[5::13], dst[5::13] = 40, 40
+        x = np.concatenate([x, np.full((1, 16), np.nan, np.float32)])
+    outside = (src < 0) | (dst >= 40)
+    g_in = np.where(outside, 0.0, g).astype(np.float32)
+    dx, dy = _port_grad(src, dst, x, y, g, two_tables)
+    if two_tables:
+        clean = np.where(np.isnan(x), 0.0, x).astype(np.float32)
+        jx, jy = _jax_grad(src, dst, clean, y, g_in, True)
+        np.testing.assert_allclose(_np(dy), jy, rtol=RTOL, atol=ATOL * 10)
+    else:
+        jx, _ = _jax_grad(src, dst, x, y, g_in, False)
+    np.testing.assert_allclose(_np(dx), jx, rtol=RTOL, atol=ATOL * 10)
+
+
+@pytest.mark.parametrize("two_tables", [False, True],
+                         ids=["one table", "two tables"])
+def test_incidence_order_is_numpy_stable_argsort(two_tables):
+    """K2's gradient order, for one batch and for a stack of three, is
+    numpy's stable argsort of the receiving rows (one sort over both ends,
+    or each end apart), as int32."""
+    rng = np.random.default_rng(15)
+    src = rng.integers(-1, 30, (3, 200)).astype(np.int32)
+    dst = rng.integers(0, 31, (3, 200)).astype(np.int32)
+    got = hk.incidence_order(torch.from_numpy(src), torch.from_numpy(dst),
+                             two_tables)
+    assert got.dtype == torch.int32 and got.shape == (3, 400)
+    for b in range(3):
+        if two_tables:
+            ref = np.concatenate([np.argsort(src[b], kind="stable"),
+                                  200 + np.argsort(dst[b], kind="stable")])
+        else:
+            ref = np.argsort(np.concatenate([src[b], dst[b]]), kind="stable")
+        np.testing.assert_array_equal(got[b].numpy(), ref)
+        one = hk.incidence_order(torch.from_numpy(src[b]),
+                                 torch.from_numpy(dst[b]), two_tables)
+        np.testing.assert_array_equal(one.numpy(), ref)
+
+
+@pytest.mark.parametrize("two_tables", [False, True],
+                         ids=["one table", "two tables"])
+def test_sddmm_coo_backward_is_the_plain_gradient(two_tables):
+    """`sddmm_coo`'s backward on CPU tensors gives `sddmm_grad`'s plain
+    version bit for bit (one table: one gradient, both ends' terms in it),
+    and the reference's autodiff within f32 tolerance."""
+    src, dst, x, y, g = _grad_case(50, 400, 16, 16, hub=100)
+    xt = torch.from_numpy(x).requires_grad_()
+    yt = torch.from_numpy(y).requires_grad_() if two_tables else None
+    out = tsd.sddmm_coo(torch.from_numpy(src), torch.from_numpy(dst), xt, yt)
+    (out * torch.from_numpy(g)).sum().backward()
+    plain = hk.sddmm_grad_reference(torch.from_numpy(g),
+                                    torch.from_numpy(src),
+                                    torch.from_numpy(dst), xt.detach(),
+                                    None if yt is None else yt.detach())
+    assert torch.equal(xt.grad, plain[0])
+    jx, jy = _jax_grad(src, dst, x, y, g, two_tables)
+    np.testing.assert_allclose(_np(xt.grad), jx, rtol=RTOL, atol=ATOL * 10)
+    if two_tables:
+        assert torch.equal(yt.grad, plain[1])
+        np.testing.assert_allclose(_np(yt.grad), jy, rtol=RTOL,
+                                   atol=ATOL * 10)
