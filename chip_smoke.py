@@ -18,7 +18,10 @@ parent build's plain gradient), and the
 trial-major TwoWL sweep (`refine_vmapped` 32 trials x 1000 epochs,
 `refine_halving`, `refine_adaptive`, `cli twowl --refine`; K1 and K3),
 node2vec walks and SGNS embeddings with the logistic family
-(`WalkEngine`, `train_sgns_device`, `run_logistic`; no kernel of its own),
+(`WalkEngine`, `train_sgns_device`, `run_logistic`; no kernel of its own)
+beside the host plane's C++ (`native.sgns_train_ref`, gensim's SGNS loop on
+the host's cores, and `native.build_csr_ell` on the collab graph against its
+numpy path),
 TwoWL at 50k nodes at the full published config (`run_twowl_scale`, `cli
 scale --family twowl`; K1 at `[50000, 32]` slots and K3 in bf16 over the
 capped ei2 structure), and SEAL (DRNL on the card against the C++ plane,
@@ -1426,10 +1429,13 @@ def walks_are_valid(walks, starts, eng):
 
 
 def n2v_phases(dev, collab_graph):
-    """(t)-(v): node2vec walks, SGNS embeddings and the logistic family.
-    These paths run no hand-written kernel (the JAX package's run no Pallas
-    kernel either): the walk and SGNS loops are gathers, `index_add_` and
-    matrix products. Returns phase (t)'s hops/s on the card by graph."""
+    """(t)-(v): node2vec walks, SGNS embeddings and the logistic family, and
+    the host plane's C++ beside them: the CSR/ELL build on the collab graph
+    (`t_csr`) and the SGNS host baseline (in (u)). These paths run no
+    hand-written kernel (the JAX package's run no Pallas kernel either): the
+    walk and SGNS loops are gathers, `index_add_` and matrix products.
+    Returns phase (t)'s hops/s on the card by graph."""
+    from linkpred_tpu_torch import native
     from linkpred_tpu_torch.data import io as dio
     from linkpred_tpu_torch.data import split as sp
     from linkpred_tpu_torch.data.graph import Graph
@@ -1480,24 +1486,84 @@ def n2v_phases(dev, collab_graph):
     rates["collab"] = 65_536 * 15 / dt
     del big
 
+    # t_csr: the C++ CSR/ELL build on the collab graph's directed message
+    # edges after the degree cap, in an order drawn from a seed (the graph
+    # holds them sorted), against its numpy path and the port's
+    # `Graph.from_edges` on the same edges, each timed twice in turns
+    assert native.available(), "the host plane's C++ library did not load"
+    n = collab_graph.num_nodes
+    perm = np.random.default_rng(13).permutation(collab_graph.num_edges)
+    src, dst = collab_graph.src[perm], collab_graph.dst[perm]
+    builds = {"cpp": native.build_csr_ell,
+              "numpy": native.build_csr_ell_numpy,
+              "graph_from_edges": lambda s, d, n: Graph.from_edges(
+                  s, d, num_nodes=n)}
+    built, seconds = {}, {name: [] for name in builds}
+    for name in [*builds, *reversed(builds)]:
+        t0 = time.perf_counter()
+        built[name] = builds[name](src, dst, n)
+        seconds[name].append(time.perf_counter() - t0)
+    order, indptr, nbr, mask, degree = built["cpp"]
+    ref, g = built["numpy"], built["graph_from_edges"]
+    for a, b in zip((indptr, nbr, mask, degree), ref[1:]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    # the C++ sorts a row with std::sort, which is not stable: among
+    # duplicate edges only the edges that `order` puts in place must agree
+    assert np.array_equal(src[order], src[ref[0]])
+    assert np.array_equal(dst[order], dst[ref[0]])
+    duplicates = len(src) - len(np.unique(src.astype(np.int64) * n + dst))
+    assert duplicates > 0 or np.array_equal(order, ref[0])
+    assert all(np.array_equal(a, b) for a, b in (
+        (indptr, g.indptr), (nbr, g.nbr), (mask, g.nbr_mask),
+        (degree, g.degree), (src[order], g.src), (dst[order], g.dst)))
+    assert nbr.shape == (n, int(degree.max())) and degree.max() <= 64
+    phase("t_csr", graph="collab, degree cap 64", nodes=n,
+          directed_edges=len(src), ell_width=nbr.shape[1],
+          duplicate_edges=duplicates, cpp_seconds=seconds["cpp"],
+          numpy_seconds=seconds["numpy"],
+          graph_from_edges_seconds=seconds["graph_from_edges"],
+          numpy_over_cpp=min(seconds["numpy"]) / min(seconds["cpp"]),
+          equal_to_numpy=True)
+    del built, ref, g, order, indptr, nbr, mask, degree
+
     # (u) SGNS at the shape of the reference's throughput gate: a 235,000 x
     # 128 table, a 65,536 x 16 corpus of uniform tokens, 1 epoch, batch
-    # 65,536; then two cliques joined by one edge, whose embeddings must
-    # separate
+    # 65,536, beside the gate's measured host baseline (`bench.py:282-294`:
+    # gensim's loop in C++ on every core the host reports, over a quarter
+    # of the corpus, timed with its host-side set-up); then two cliques
+    # joined by one edge, whose embeddings must separate
     n_vocab = 235_000
-    corpus = torch.as_tensor(np.random.default_rng(5).integers(
-        0, n_vocab, (65_536, 16), dtype=np.int32), device=dev)
+    tokens = np.random.default_rng(5).integers(0, n_vocab, (65_536, 16),
+                                               dtype=np.int32)
+    corpus = torch.as_tensor(tokens, device=dev)
     cfg = w2v.SGNSConfig(dim=128, epochs=1, batch_size=65_536)
     prep = w2v.prepare_sgns(corpus, n_vocab, cfg)
     steps = w2v.sgns_schedule(corpus.numel(), n_vocab, cfg)[1]
     emb, dt = timed(lambda: w2v.train_sgns_device(gen, corpus, n_vocab, cfg,
                                                   prep))
     assert emb.shape == (n_vocab, 128) and torch.isfinite(emb).all()
+    del emb
+    tokens_per_s = corpus.numel() * cfg.epochs / dt
+    t0 = time.perf_counter()
+    syn0, words = native.sgns_train_ref(tokens[:16_384], n_vocab, dim=128,
+                                        epochs=1, n_threads=0)
+    host_dt = time.perf_counter() - t0
+    assert words == 16_384 * 16, words
+    assert syn0.shape == (n_vocab, 128) and np.isfinite(syn0).all()
+    del syn0
+    host_rate = words / host_dt
     phase("u_sgns", table=[n_vocab, 128], corpus=list(corpus.shape),
           steps=steps, seconds=dt, host_prep_seconds=prep.prep_seconds,
-          tokens_per_s=corpus.numel() * cfg.epochs / dt,
+          tokens_per_s=tokens_per_s,
           pairs_per_s=corpus.numel() * cfg.window * 2 * cfg.epochs / dt,
-          steps_per_s=steps / dt)
+          steps_per_s=steps / dt, host_corpus=[16_384, 16],
+          host_seconds=host_dt, host_measured_words_per_s=host_rate,
+          host_threads=os.cpu_count(),
+          host_affinity_cpus=len(os.sched_getaffinity(0)),
+          gensim_cited_words_per_s=450_000,
+          device_over_host=tokens_per_s / host_rate,
+          beats_host_measured=tokens_per_s > host_rate,
+          beats_gensim_cited=tokens_per_s > 450_000)
     k = 8
     src, dst = [], []
     for base in (0, k):
