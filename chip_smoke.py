@@ -42,7 +42,12 @@ and the collab graph, `train_sgns_mesh` at the logistic family's config and
 at 235,000 x 128, each held to its one-card or one-process counterpart),
 `torchrun --nproc-per-node 1 ... scale --family gcn` on NCCL, and
 `train_sharded`'s, `train_sgns_mesh`'s and the routed walk's collectives
-over a one-rank NCCL mesh). One line per phase; every timing of K3 names
+over a one-rank NCCL mesh). Every path an AUC gate reads also runs twice in
+this process from one seed, at a cut depth, in a repeat phase whose
+readings (tables, losses, AUCs) must agree bit for bit (`e_slice_repeat`,
+`p_sweep_repeat`, `u_sgns_repeat`, `v_logistic_repeat`, `w_scale_repeat`,
+`seal_repeat`, `par_collab_repeat`, `dn_sgns_repeat`, and the GCN's
+`k_gcn_repeat`). One line per phase; every timing of K3 names
 the device kernel the profiler saw for the timed call (`device_kernel`:
 which of K3's four kernels the shape took, and at what group and rows a
 warp). Then one JSON line of kernel results, the card's name and power
@@ -67,6 +72,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -92,6 +98,11 @@ GCN_SEEDS = (0,)
 # differ from JAX's
 SWEEP_TRIALS, SWEEP_EPOCHS = 32, 1000
 SWEEP_TEST_FLOOR, SWEEP_VAL_FLOOR = 0.85, 0.80
+# the repeat phases: each gated path run twice in this process from one seed
+# and held bit for bit, at a depth cut to what shows a change of summation
+# order (the first steps of a run)
+REPEAT_SLICE_EPOCHS, REPEAT_SWEEP_EPOCHS, REPEAT_SCALE_EPOCHS = 50, 20, 8
+REPEAT_SEAL_EPOCHS, PAR_REPEAT_STEPS, PAR_REPEAT_SGNS_ROWS = 2, 5, 4096
 TURN_EPOCHS = 100  # the sweep in turns 'ell', 'plan', 'plan', 'ell'
 REFINE_EPOCHS = 100  # phase (q)
 # the logistic family, phase (v): test AUC at seed 35 (seed 36 cut to fit
@@ -379,6 +390,60 @@ def check(name, got, ref, tol):
     return float((got.float() - ref.float()).abs().max()) if got.numel() else 0.0
 
 
+def _host_bits(v):
+    """`v` as a host numpy array (tensors copied), for a bitwise compare."""
+    if torch.is_tensor(v):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def repeat_phase(name, run, read, first=None, seconds=None, **info):
+    """A repeat phase: `run()` twice in this process, from the same seed
+    and inputs; `read(result)` gives {name: what the gate reads} (arrays,
+    tensors or numbers), and each must agree bit for bit between the two
+    runs: dtype, shape and bytes. `first`: the result of a run an earlier
+    phase made, from the same seed and inputs, in place of the first run.
+    Prints the phase with `bitwise_equal: true` and the seconds of the runs
+    it made (`seconds`: of two runs that rank processes made, which `first`
+    and `run` hand over); any difference raises. Returns the first run's
+    readings."""
+    t0 = time.perf_counter()
+    first = read(run() if first is None else first)
+    second = read(run())
+    if seconds is None:
+        seconds = time.perf_counter() - t0
+    assert first.keys() == second.keys(), name
+    for key in first:
+        a, b = _host_bits(first[key]), _host_bits(second[key])
+        assert a.dtype == b.dtype and a.shape == b.shape, (name, key)
+        assert a.tobytes() == b.tobytes(), (
+            name, key, float(np.abs(a.astype(np.float64)
+                                    - b.astype(np.float64)).max()))
+    phase(name, bitwise_equal=True, compared=sorted(first), seconds=seconds,
+          **info)
+    return first
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Record what `module.name` returns while the block runs (every call,
+    in order), the function itself unchanged: how a repeat phase reads the
+    losses of an entry point that returns only their summary."""
+    fn = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
 def time_in_turns(plain, kernel):
     """Device ms per call (profiler kernel sums) and host-issued ms per call
     (CUDA events) of `plain` and `kernel`, run in turns plain, kernel,
@@ -479,15 +544,40 @@ def sddmm_grad_work(g, src, dst, x, y=None):
             ), 2 * 2 * int(keep.sum()) * f
 
 
-def parent_gradient(g, src, dst, h):
-    """K2's one-table gradient as the parent build took it: the plain
-    gradient of two tables (per table a f32 zero-fill, `index_add_` of the
-    gathered rows times `g` and a cast; `sddmm_grad_reference`), then
-    autograd's add of the two. Timed beside the kernel and behind the
-    parent's scoring in phase (k)'s profile; no path of the port runs it."""
-    from linkpred_tpu_torch.ops import hopper_kernels as hk
+def atomic_gradient(g, src, dst, x, y=None):
+    """K2's plain gradient as the builds before this one summed it: the f32
+    terms added by `index_add_`, whose atomics add a row's terms in another
+    order on every run, then a cast to the tables' type. `(dx, dy)`, or
+    `(dx + dy, None)` with one table. What phase (i) holds beside the
+    kernel against the float64 plain version; no path of the port runs
+    it."""
+    table = x if y is None else y
+    keep = ((src >= 0) & (src < x.shape[0]) & (dst >= 0)
+            & (dst < table.shape[0]))
+    s = torch.where(keep, src, 0).long()
+    d = torch.where(keep, dst, 0).long()
+    gk = g.float()[:, None]
+    terms = [(s, torch.where(keep[:, None], gk * table.index_select(0, d)
+                             .float(), 0.0)),
+             (d, torch.where(keep[:, None], gk * x.index_select(0, s)
+                             .float(), 0.0))]
+    if y is None:
+        out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        out.index_add_(0, torch.cat([terms[0][0], terms[1][0]]),
+                       torch.cat([terms[0][1], terms[1][1]]))
+        return out.to(x.dtype), None
+    return tuple(
+        torch.zeros(t.shape, dtype=torch.float32, device=x.device)
+        .index_add_(0, *term).to(t.dtype) for t, term in zip((x, y), terms))
 
-    dx, dy = hk.sddmm_grad_reference(g, src, dst, h, h)
+
+def parent_gradient(g, src, dst, h):
+    """K2's one-table gradient as the build before K2's gradient kernel took
+    it: the plain gradient of two tables (`atomic_gradient`), then
+    autograd's add of the two. Timed beside the kernel and behind the
+    parent's scoring in phase (k)'s profile; no path of the port runs
+    it."""
+    dx, dy = atomic_gradient(g, src, dst, h, h)
     return dx + dy
 
 
@@ -880,6 +970,56 @@ def gcn_phases(dev, hk):
     phase("i_k2_grad_time", case="step one table x128 bf16", **k2g_time,
           device_kernel=device_kernels(
               lambda: hk.sddmm_grad(g_step, src, dst, h_bf, None, order)))
+    # (i_k2_grad_exact) the card test's hub runs at E = 16,385 f32 (node
+    # n - 1 named by every 33rd src, node 0 by every 33rd dst): the
+    # kernel's and the atomic f32 plain version's (six runs) distance from
+    # the float64 plain version, at the hub rows and anywhere, and how far
+    # each lies beyond the f32 tolerance (the card test holds the kernel)
+    n_s, e_s = 20_000, 16_385
+    g_s = torch.randn(e_s, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(e_s))
+    at = torch.arange(e_s, device=dev)
+    for f in (128, 33):
+        for two in (False, True):
+            gen_s = torch.Generator(device=dev).manual_seed(e_s)
+            s_s, d_s = (torch.randint(0, n_s, (e_s,), generator=gen_s,
+                                      device=dev, dtype=torch.int32)
+                        for _ in range(2))
+            s_s = torch.where(at % 33 == 0, n_s - 1, s_s).to(torch.int32)
+            d_s = torch.where(at % 33 == 1, 0, d_s).to(torch.int32)
+            x_s = torch.randn((n_s, f), device=dev, generator=torch.Generator(
+                device=dev).manual_seed(3))
+            y_s = torch.randn((n_s, f), device=dev, generator=torch.Generator(
+                device=dev).manual_seed(4)) if two else None
+            exact = [t for t in hk.sddmm_grad_reference(g_s, s_s, d_s, x_s,
+                                                        y_s) if t is not None]
+            kernel = [t for t in hk.sddmm_grad(g_s, s_s, d_s, x_s, y_s)
+                      if t is not None]
+
+            def dist(got):
+                worst = max(float((a - b).abs().max())
+                            for a, b in zip(got, exact))
+                hub = max(float((a[r] - b[r]).abs().max())
+                          for a, b in zip(got, exact) for r in (0, n_s - 1))
+                # the largest miss beyond the f32 tolerance (<= 0: within)
+                over = max(float(((a - b).abs() - F32_TOL["atol"]
+                                  - F32_TOL["rtol"] * b.abs()).max())
+                           for a, b in zip(got, exact))
+                return worst, hub, over
+
+            atomic = [[t for t in atomic_gradient(g_s, s_s, d_s, x_s, y_s)
+                       if t is not None] for _ in range(6)]
+            k_err = dist(kernel)
+            phase("i_k2_grad_exact", e=e_s, f=f,
+                  tables="two" if two else "one",
+                  kernel_max_abs_err=k_err[0], kernel_hub_max_abs_err=k_err[1],
+                  kernel_over_tol=k_err[2],
+                  atomic_max_abs_err=[dist(a)[0] for a in atomic],
+                  atomic_hub_max_abs_err=[dist(a)[1] for a in atomic],
+                  atomic_over_tol=[dist(a)[2] for a in atomic],
+                  atomic_runs_bitwise_equal=all(
+                      torch.equal(a, b) for run in atomic[1:]
+                      for a, b in zip(atomic[0], run)), tol=F32_TOL)
 
     # (j) the main path: `train_collab` at the full config (GCN_SEEDS).
     # The launch counts are zeroed just before and read just after each run.
@@ -1327,6 +1467,25 @@ def sweep_phases(dev, hk, data, run, trn, rates):
           best_val_ell_plan_plan_ell=[r["best_val"] for r in turns],
           busy_share=busy_shares(profiles, rate), profile=profiles)
 
+    # (p_repeat) the sweep cut to 20 epochs, twice from one seed: every
+    # epoch's losses and val AUCs [E, T] (read from the trial loop), the
+    # winner and its test AUC
+    def sweep_short():
+        with recording(m, "train_loop_trials") as loops:
+            res = tp.refine_vmapped(
+                data, cfg,
+                dataclasses.replace(run, epochs=REPEAT_SWEEP_EPOCHS),
+                n_trials=T, device=dev)
+        return res, loops
+
+    repeat_phase(
+        "p_sweep_repeat", sweep_short,
+        lambda r: {"losses": r[1][0][2][0], "val_aucs": r[1][0][2][1],
+                   "best_val_aucs": r[0]["val_aucs"],
+                   "winner": np.array(list(r[0]["winner"].values())),
+                   "test_auc": r[0]["test_auc"]},
+        trials=T, epochs=REPEAT_SWEEP_EPOCHS)
+
     # (q) successive halving and the adaptive rounds at reduced size
     run_q = dataclasses.replace(run, epochs=REFINE_EPOCHS)
     before = dict(hk.LAUNCHES)
@@ -1433,7 +1592,8 @@ def n2v_phases(dev, collab_graph):
     the host plane's C++ beside them: the CSR/ELL build on the collab graph
     (`t_csr`) and the SGNS host baseline (in (u)). These paths run no
     hand-written kernel (the JAX package's run no Pallas kernel either): the
-    walk and SGNS loops are gathers, `index_add_` and matrix products.
+    walk and SGNS loops are gathers, fixed-order row sums
+    (`ops.rows.add_rows_`) and matrix products.
     Returns phase (t)'s hops/s on the card by graph."""
     from linkpred_tpu_torch import native
     from linkpred_tpu_torch.data import io as dio
@@ -1564,6 +1724,14 @@ def n2v_phases(dev, collab_graph):
           device_over_host=tokens_per_s / host_rate,
           beats_host_measured=tokens_per_s > host_rate,
           beats_gensim_cited=tokens_per_s > 450_000)
+    # (u_repeat) the same training twice from one seed: both tables (the
+    # row updates of a step add a hub's terms in a fixed order)
+    repeat_phase(
+        "u_sgns_repeat", lambda: w2v.train_sgns_tables(
+            torch.Generator(device=dev).manual_seed(11), corpus, n_vocab, cfg,
+            prep),
+        lambda tables: {"w_in": tables[0], "w_out": tables[1]},
+        table=[n_vocab, 128], corpus=list(corpus.shape), steps=steps)
     k = 8
     src, dst = [], []
     for base in (0, k):
@@ -1587,10 +1755,13 @@ def n2v_phases(dev, collab_graph):
 
     # (v) the logistic family end to end at its default config, seed 35,
     # every output under a temporary directory, no plot
-    for seed in (35,):
-        out = io.StringIO()
+    def logistic(seed, out):
+        """`run_logistic` at `seed`, printing to `out`: (its result, its
+        SGNS embeddings, the temporary directory's record lines and whether
+        it wrote the metrics file)."""
         with tempfile.TemporaryDirectory() as tmp:
-            with contextlib.redirect_stdout(out):
+            with contextlib.redirect_stdout(out), recording(
+                    lp, "train_sgns_device") as emb:
                 res = lp.run_logistic(
                     lp.LogisticConfig(seed=seed,
                                       records_dir=os.path.join(tmp, "rec")),
@@ -1599,7 +1770,14 @@ def n2v_phases(dev, collab_graph):
             with open(os.path.join(
                     tmp, "rec", "fb-pages-food_auc_record_logistic.txt")) as f:
                 record = f.read().splitlines()
-            assert os.path.getsize(os.path.join(tmp, "metrics.jsonl")) > 0
+            wrote = os.path.getsize(os.path.join(tmp, "metrics.jsonl")) > 0
+        return res, emb[0], record, wrote
+
+    runs = {}
+    for seed in (35,):
+        out = io.StringIO()
+        res, emb, record, wrote = runs[seed] = logistic(seed, out)
+        assert wrote
         assert len(record) == 1 and record[0].startswith("AUC:"), record
         assert res["auc"] >= LOGISTIC_AUC_FLOOR, res["auc"]
         spans = {ln.split(":")[0].strip(): float(ln.split(":")[1].split()[0])
@@ -1608,6 +1786,12 @@ def n2v_phases(dev, collab_graph):
         phase("v_run_logistic", seed=seed, auc=res["auc"],
               fit_seconds=res["fit_seconds"], num_pos=res["num_pos"],
               num_neg=res["num_neg"], record=record[0], spans=spans)
+    # (v_repeat) seed 35 once more: the test AUC and the SGNS embeddings
+    # bit for bit against phase (v)'s run (the first of the two)
+    repeat_phase(
+        "v_logistic_repeat", lambda: logistic(35, io.StringIO()),
+        lambda r: {"test_auc": r[0]["auc"], "embeddings": r[1]},
+        first=runs[35], seed=35, first_run="phase v's")
     return rates
 
 
@@ -1674,6 +1858,27 @@ def scale_phases(dev, hk):
           buckets_fwd=[list(b) for b in trn.e1_cops[0].k3[1]],
           buckets_bwd=[list(b) for b in trn.e1_cops[1].k3[1]],
           launches_per_epoch=rates)
+
+    # (w_repeat) the same entry point cut to 8 epochs, twice from one seed,
+    # the node2vec seeding included: every loss (read from the epoch loop,
+    # its warm-up too), the best val AUC and the test AUC. Both runs take
+    # the host-built graph and splits above (numpy, the arrays every build
+    # of this config gives), which saves two builds' seconds
+    def scale_short():
+        with recording(m, "train_loop") as loops, mock.patch.object(
+                ts, "build_scale_data", lambda c: data):
+            out = ts.run_twowl_scale(
+                dataclasses.replace(cfg, epochs=REPEAT_SCALE_EPOCHS),
+                device=dev, agg_1wl="ell", verbose=False)
+        return out, loops
+
+    repeat_phase(
+        "w_scale_repeat", scale_short,
+        lambda r: {"losses": torch.cat([loop[3][0] for loop in r[1]]),
+                   "val_aucs": torch.cat([loop[3][1] for loop in r[1]]),
+                   "best_val_auc": r[0]["best_val_auc"],
+                   "test_auc": r[0]["test_auc"]},
+        epochs=REPEAT_SCALE_EPOCHS)
 
     # 'ell' against 'plan' in turns, then a profile of 8 epochs of each, and
     # the two paths' test AUC after 24 epochs from the same start
@@ -1976,6 +2181,28 @@ def seal_phases(dev, hk):
               subgraphs_per_s=n_steps * 32 / res["train_seconds"],
               total_seconds=res["total_seconds"], record=record[0],
               spans=spans)
+
+    # (seal_repeat) `run_seal` at seed 0 cut to 2 epochs, twice, its
+    # node2vec features included: every loss (read from the step loop, its
+    # warm-up too), the trained parameters and the test AUC
+    def seal_short():
+        with tempfile.TemporaryDirectory() as tmp, recording(
+                seal, "train_steps") as losses:
+            res = sp.run_seal(
+                sp.SEALConfig(seed=0, epochs=REPEAT_SEAL_EPOCHS,
+                              records_dir=os.path.join(tmp, "rec")),
+                device=dev, verbose=False, roc_png=None,
+                metrics_file=os.path.join(tmp, "metrics.jsonl"),
+                checkpoint_prefix=None)
+        return res, losses
+
+    repeat_phase(
+        "seal_repeat", seal_short,
+        lambda r: {"losses": torch.cat([v.reshape(-1) for v in r[1]]),
+                   "params": torch.cat([t.detach().reshape(-1) for t in
+                                        seal.leaves(r[0]["params"])]),
+                   "test_auc": r[0]["auc"]},
+        seed=0, epochs=REPEAT_SEAL_EPOCHS)
 
     # (seal_scale) SEAL at collab scale, bench.py:gate_collab_seal's config:
     # 235,000 nodes, 4,096 subgraphs, 8 epochs of 57 steps
@@ -2512,10 +2739,14 @@ def par_seal_rank(rank, world, dev, inputs):
 
 
 def _rank_device():
-    """Every rank's device: card 0, which the ranks share."""
+    """Every rank's device: card 0, which the ranks share, with the
+    switches `cuda_device()` sets (no TF32; cuDNN deterministic, without
+    benchmarking)."""
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     return torch.device("cuda", 0)
 
 
@@ -2601,7 +2832,9 @@ def _train_counted(gs, hk, cfg, mesh, dev, built, params=None):
 def par_job_b(rank, world, cfgs, builts, params_np):
     """Job B of the parallel group, on every rank: `train_sharded` at the
     full config, node-sharded then halo, each counted (`_train_counted`);
-    the weights' largest difference across ranks."""
+    the weights' largest difference across ranks. Then the repeat: each
+    layout cut to `PAR_REPEAT_STEPS` steps, twice from the same
+    parameters. Returns (the runs, each layout's two runs' losses)."""
     import torch.distributed as dist
 
     from linkpred_tpu_torch.ops import hopper_kernels as hk
@@ -2620,7 +2853,17 @@ def par_job_b(rank, world, cfgs, builts, params_np):
             mesh.get_group("edge"))
         runs.append((res, losses, counts))
         dist.barrier()
-    return runs
+    repeats = []
+    for built, p_np in zip(builts, params_np):
+        short = dict(built, cfg=dataclasses.replace(built["cfg"],
+                                                    steps=PAR_REPEAT_STEPS))
+        t0 = time.perf_counter()
+        losses = [gs.train_sharded(short["cfg"], mesh, dev, short,
+                                   gs.params_from_jax(p_np, dev))[2]
+                  for _ in range(2)]
+        repeats.append((losses, time.perf_counter() - t0))
+        dist.barrier()
+    return runs, repeats
 
 
 def _one_rank_n2v(n2v, dev):
@@ -2909,6 +3152,8 @@ def _par_collab(dev, cfg, cfg_halo, problem, built_ns, built_halo):
                                    [p_np, p_np]),
                              timeout_s=900, threads=2)
     job_b_seconds = time.perf_counter() - t0
+    repeats = job_b[0][1]  # rank 0's
+    job_b = [r[0] for r in job_b]
     # the one-rank run of the first steps, from the same parameters and
     # batches
     ops_whole = spmm.BucketedEll.from_graph(problem[0]).operands(dev)
@@ -2944,6 +3189,13 @@ def _par_collab(dev, cfg, cfg_halo, problem, built_ns, built_halo):
               max_abs_loss_diff=loss_diff, loss_tol=PAR_LOSS_ATOL,
               spread_bound=PAR_SPREAD_BOUND,
               **dict(res, max_param_spread=spread))
+    # (par_collab_repeat) each layout cut to PAR_REPEAT_STEPS steps, run
+    # twice in job B from the same parameters: rank 0's losses
+    for name, (runs, seconds) in zip(("node_sharded", "halo"), repeats):
+        repeat_phase("par_collab_repeat", lambda: runs[1],
+                     lambda losses: {"losses": losses}, first=runs[0],
+                     seconds=seconds, label=PAR_LABEL, aggregation=name,
+                     steps=PAR_REPEAT_STEPS)
     phase("par_collab_job", seconds=job_b_seconds)
     return collab
 
@@ -3011,6 +3263,16 @@ def par_job_c(rank, world, inputs):
     timed("sgns collab", lambda: train_sgns_mesh(
         PAR_N2V_SEED, big, inputs["collab_nodes"],
         SGNSConfig(dim=128, epochs=1, batch_size=65_536), mesh=data))
+    # the repeat: the same table trained twice from one seed on the first
+    # rows of the corpus (20 steps)
+    t0 = time.perf_counter()
+    tables = [train_sgns_mesh(
+        PAR_N2V_SEED, big[:PAR_REPEAT_SGNS_ROWS], inputs["collab_nodes"],
+        SGNSConfig(dim=128, epochs=1, batch_size=65_536), mesh=data)
+        for _ in range(2)]
+    seconds["sgns repeat"] = time.perf_counter() - t0
+    if rank == 0:
+        out["sgns repeat"] = tables
     return {"out": out, "seconds": seconds, "digest": digest, "lost": lost}
 
 
@@ -3222,6 +3484,14 @@ def _par_n2v(dev, problem, walk_rates):
               score_all_reduce_bytes_per_step=bc * (nc + cfg.neg_pool) * 4,
               index_gather_bytes_per_step=bc * (1 + 2 * nc) * 4,
               auc_floor=LOGISTIC_AUC_FLOOR if extra else None, **extra)
+    # (dn_sgns_repeat) job C's two runs of `train_sgns_mesh` from one
+    # seed: rank 0's gathered table
+    tables = first["out"]["sgns repeat"]
+    repeat_phase("dn_sgns_repeat", lambda: tables[1],
+                 lambda table: {"table": table}, first=tables[0],
+                 seconds=secs["sgns repeat"], label=PAR_LABEL,
+                 corpus=[PAR_REPEAT_SGNS_ROWS, 16],
+                 table=[collab.num_nodes, 128])
     phase("dn_job", seconds=job_seconds,
           seconds_all=time.perf_counter() - t_all)
 
@@ -3434,6 +3704,14 @@ def slice_phases(dev, hk, data, run, trn, rates):
           plan_best_val=turns[1]["best_val"],
           plan_test_auc=turns[1]["test_auc"],
           busy_share=busy_shares(profiles, rate), profile=profiles)
+    # (e_repeat) the slice cut to 50 epochs, twice from one seed
+    repeat_phase(
+        "e_slice_repeat", lambda: tp.train_routine_fused(
+            data, cfg_e, dataclasses.replace(run, epochs=REPEAT_SLICE_EPOCHS),
+            dev),
+        lambda r: {"losses": r["loss_history"], "val_aucs": r["history"],
+                   "test_auc": r["test_auc"]},
+        epochs=REPEAT_SLICE_EPOCHS)
 
     # (f) the entry point, every output under a temporary directory
     with tempfile.TemporaryDirectory() as tmp:

@@ -11,6 +11,8 @@ another build of their sources at every shape of the kernel table in
     python3 kernel_turns.py --groups compare \\
         --other build/parent/linkpred_tpu_torch/csrc
 
+    python3 kernel_turns.py --groups cost --other-tree build/parent
+
 `--other` names another revision's `csrc/` directory, for instance the
 parent commit's, unpacked under `build/` (which git ignores):
 `mkdir -p build/parent && git archive HEAD~1 linkpred_tpu_torch/csrc | tar
@@ -39,10 +41,19 @@ GCN's pairs (`split` and `k2` hold each kernel against the plain version
 first); `hoist` times the GCN's 60 training steps (steps/s, host clock)
 with K2's gradient sorting its incidences in each backward, as the port
 does, and with every step's order built once before the loop; `compare`
-needs `--other`. Needs a card and `nvcc`; the data
-are the smoke's (fb-pages-food's TwoWL splits, TwoWL at 50k nodes, the
-collab-scale GCN graph and, for `packed` and `compare`, its four-rank
-layouts), built on the host first.
+needs `--other`. `cost` (alone, with `--other-tree`, the root of another
+revision's checkout unpacked under `build/`: `git archive HEAD~1 | tar -x
+-C build/parent`) times the paths whose plain code between the kernels
+sums rows: one child process per turn, other, this, this, other, each
+importing its own tree's package (and building its kernels there), prints
+SGNS steps/s and tokens/s at `chip_smoke.py` phase (u)'s shape, the
+logistic family's total seconds (seed 35), SEAL's steps/s (seed 0, 10
+epochs), TwoWL at 50k nodes' epochs/s (the full config) and
+`par_collab`'s steps/s node-sharded and halo (four gloo ranks on the
+card, through that tree's `chip_smoke._par_collab`). Needs a card and
+`nvcc`; the data are the smoke's (fb-pages-food's TwoWL splits, TwoWL at
+50k nodes, the collab-scale GCN graph and, for `packed` and `compare`, its
+four-rank layouts), built on the host first.
 """
 
 import argparse
@@ -50,6 +61,7 @@ import ctypes
 import dataclasses
 import json
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -64,7 +76,83 @@ from linkpred_tpu_torch.ops import hopper_kernels as hk
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "linkpred_tpu_torch" / "csrc"
 WORK = ROOT / "build" / "kernel_turns"
-GROUPS = ("check", "paths", "packed", "split", "k2", "hoist", "compare")
+GROUPS = ("check", "paths", "packed", "split", "k2", "hoist", "compare",
+          "cost")
+
+# the `cost` group's child: run from the root of a checkout, it imports that
+# tree's package and smoke, times the paths and prints one JSON line last
+COST_CHILD = r"""
+import contextlib, dataclasses, io, json, os, sys, tempfile, time
+import numpy as np
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from linkpred_tpu_torch.models import word2vec as w2v
+from linkpred_tpu_torch.pipelines import gcn_scale as gs
+from linkpred_tpu_torch.pipelines import logistic_pipeline as lp
+from linkpred_tpu_torch.pipelines import seal_pipeline as sp
+from linkpred_tpu_torch.pipelines import twowl_scale as ts
+from linkpred_tpu_torch.utils.device import cuda_device
+
+dev = cuda_device()
+out = {"tree": os.getcwd()}
+
+def synced():
+    torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+# SGNS at phase (u)'s shape: a warm run, then two timed
+n = 235_000
+corpus = torch.as_tensor(np.random.default_rng(5).integers(
+    0, n, (65_536, 16), dtype=np.int32), device=dev)
+cfg = w2v.SGNSConfig(dim=128, epochs=1, batch_size=65_536)
+prep = w2v.prepare_sgns(corpus, n, cfg)
+steps = w2v.sgns_schedule(corpus.numel(), n, cfg)[1]
+secs = []
+for i in range(3):
+    t0 = synced()
+    w2v.train_sgns_device(torch.Generator(device=dev).manual_seed(i), corpus,
+                          n, cfg, prep)
+    secs.append(synced() - t0)
+out["sgns_seconds"] = secs[1:]
+out["sgns_steps_per_s"] = [steps / s for s in secs[1:]]
+out["sgns_tokens_per_s"] = [corpus.numel() / s for s in secs[1:]]
+
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(
+        io.StringIO()):
+    res = lp.run_logistic(
+        lp.LogisticConfig(seed=35, records_dir=os.path.join(tmp, "rec")),
+        device=dev, roc_png=None, metrics_file=os.path.join(tmp, "m.jsonl"))
+    out["logistic_total_seconds"] = res["total_seconds"]
+    out["logistic_auc"] = float(res["auc"])
+    seal_cfg = sp.SEALConfig(seed=0, epochs=10,
+                             records_dir=os.path.join(tmp, "rec"))
+    res = sp.run_seal(seal_cfg, device=dev, verbose=False, roc_png=None,
+                      metrics_file=os.path.join(tmp, "m.jsonl"),
+                      checkpoint_prefix=None)
+    # 4,182 subgraphs, 90 % of them trained in batches of 32
+    steps = seal_cfg.epochs * (int(4182 * 0.9) // seal_cfg.batch_size)
+    out["seal_steps_per_s"] = steps / res["train_seconds"]
+    out["seal_auc"] = float(res["auc"])
+
+res = ts.run_twowl_scale(ts.ScaleTwoWLConfig(), device=dev, verbose=False)
+out["scale_epochs_per_s"] = res["epochs_per_s"]
+out["scale_n2v_seconds"] = res["n2v_seconds"]
+out["scale_test_auc"] = res["test_auc"]
+
+gcfg = gs.ScaleGCNConfig(steps=60, learning_rate=3e-3)
+gcfg_halo = dataclasses.replace(gcfg, aggregation="halo")
+problem = gs.build_problem(gcfg)
+built = [gs.build_sharded(c, cs.PAR_RANKS, problem) for c in (gcfg, gcfg_halo)]
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    cs._par_collab(dev, gcfg, gcfg_halo, problem, *built)
+for line in printed.getvalue().splitlines():
+    rec = json.loads(line) if line.startswith("{") else {}
+    if rec.get("phase") == "par_collab":
+        out[f"par_collab_{rec['aggregation']}_steps_per_s"] =             rec["steps_per_s"]
+print(json.dumps(out))
+"""
 
 # kernel: 0 the warp-per-row kernel (feature pairs a lane where the rows
 # allow them, as the dispatch takes it), 1 the slot kernel at `group` lanes a
@@ -544,6 +632,34 @@ def layouts(dev, need_sharded):
     return k3, k1, k2, (cfg, problem)
 
 
+def cost_turns(other: Path, emit):
+    """The `cost` group: `COST_CHILD` in `other` and in this checkout, in
+    turns other, this, this, other, one process each; one line per turn,
+    then each tree's mean of every number over its two turns."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    emit(step="cost", device=smi, other=str(other), this=str(ROOT))
+    turns = {"other": [], "this": []}
+    for label in ("other", "this", "this", "other"):
+        tree = other if label == "other" else ROOT
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", COST_CHILD], cwd=tree,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"cost child in {tree} failed:\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        turns[label].append(res)
+        emit(step="cost_turn", build=label, seconds=time.perf_counter() - t0,
+             **res)
+    for label, runs in turns.items():
+        mean = {k: float(np.mean([np.mean(r[k]) for r in runs]))
+                for k, v in runs[0].items()
+                if isinstance(v, (int, float, list))}
+        emit(step="cost_mean", build=label, device=smi, **mean)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--groups", default="check,paths",
@@ -555,6 +671,9 @@ def main():
                         help="values of K3's kSlotsUnroll to build")
     parser.add_argument("--packed-unrolls", default="8",
                         help="values of K3's kPackedUnroll to build")
+    parser.add_argument("--other-tree", default=None,
+                        help="another revision's checkout root, for the "
+                             "cost group")
     parser.add_argument("--out", default=None,
                         help="a file to append the JSON lines to")
     args = parser.parse_args()
@@ -563,11 +682,16 @@ def main():
         parser.error(f"unknown groups {sorted(set(groups) - set(GROUPS))}")
     if "compare" in groups and not args.other:
         parser.error("the compare group needs --other")
+    if "cost" in groups and (groups != ["cost"] or not args.other_tree):
+        parser.error("the cost group runs alone, with --other-tree")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_turns: no CUDA device is visible")
     from linkpred_tpu_torch.utils.device import cuda_device
 
     emit = Out(args.out)
+    if groups == ["cost"]:
+        cost_turns(Path(args.other_tree).resolve(), emit)
+        return
     dev = cuda_device()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,

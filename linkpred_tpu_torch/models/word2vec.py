@@ -10,7 +10,9 @@ distribution through an alias table built once per corpus, as one pool of
 `neg_pool` rows that every pair of the step scores against with weight
 `negatives / neg_pool` (`neg_pool=0`: classic per-pair negatives). Updates
 are plain SGD with linear learning-rate decay; rows that collide within a
-batch are summed exactly (`index_add_`), so there is no hogwild.
+batch get the sum of their updates (`ops.rows.add_rows_`, as the JAX
+package's `.at[].add`), so there is no hogwild, and that sum is taken in a
+fixed order, so one seed gives one table on the card too.
 
 The step bodies (`sgns_step_pooled`, `sgns_step_classic`) are functions of
 the drawn indices, apart from the draws (`sample_pairs`, `draw_noise`), so
@@ -31,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from linkpred_tpu_torch.ops.rows import add_rows_
 from linkpred_tpu_torch.ops.walk import alias_setup_rows
 
 
@@ -203,10 +206,9 @@ def pooled_update(w_in: torch.Tensor, w_out: torch.Tensor,
     grad_uo = g_pos[:, :, None] * vc[:, None, :]  # [Bc, nc, D]
     grad_pool = g_neg.T @ vc  # [P, D]
 
-    w_in.index_add_(0, center, grad_vc, alpha=-lr)
-    w_out.index_add_(0, context.reshape(-1), grad_uo.reshape(Bc * nc, -1),
-                     alpha=-lr)
-    w_out.index_add_(0, pool, grad_pool, alpha=-lr)
+    add_rows_(w_in, center, -lr * grad_vc)
+    add_rows_(w_out, context.reshape(-1), -lr * grad_uo.reshape(Bc * nc, -1))
+    add_rows_(w_out, pool, -lr * grad_pool)
 
 
 @torch.no_grad()
@@ -245,11 +247,9 @@ def sgns_step_classic(w_in: torch.Tensor, w_out: torch.Tensor,
     grad_uo = g_pos[:, :, None] * vc[:, None, :]
     grad_un = g_neg[:, :, :, None] * vc[:, None, None, :]
 
-    w_in.index_add_(0, center, grad_vc, alpha=-lr)
-    w_out.index_add_(0, context.reshape(-1), grad_uo.reshape(Bc * nc, -1),
-                     alpha=-lr)
-    w_out.index_add_(0, neg.reshape(-1), grad_un.reshape(Bc * nc * K, -1),
-                     alpha=-lr)
+    add_rows_(w_in, center, -lr * grad_vc)
+    add_rows_(w_out, context.reshape(-1), -lr * grad_uo.reshape(Bc * nc, -1))
+    add_rows_(w_out, neg.reshape(-1), -lr * grad_un.reshape(Bc * nc * K, -1))
 
 
 def sgns_schedule(num_tokens: int, num_nodes: int,
@@ -272,17 +272,13 @@ def sgns_schedule(num_tokens: int, num_nodes: int,
 
 
 @torch.no_grad()
-def train_sgns_device(generator: torch.Generator, walks: torch.Tensor,
+def train_sgns_tables(generator: torch.Generator, walks: torch.Tensor,
                       num_nodes: int, cfg: SGNSConfig = SGNSConfig(),
-                      prep: SGNSPrep | None = None) -> torch.Tensor:
-    """Train SGNS embeddings from the walk matrix `walks` [W, L] (a tensor;
-    training runs on its device, with `generator` a `torch.Generator` of
-    that device) and return the input table [num_nodes, dim] float32 on
-    the device. The loop reads nothing back to the host.
-
-    Nodes that no walk visits keep their (tiny random) init. Pass a
-    `prepare_sgns` result as `prep` to skip the noise-table build (it
-    depends only on the corpus)."""
+                      prep: SGNSPrep | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`train_sgns_device`'s loop, returning both trained tables (input,
+    output) [num_nodes, dim] float32 on the device, as the JAX package's
+    `_train` does."""
     dev = walks.device
     if prep is None:
         prep = prepare_sgns(walks, num_nodes, cfg)
@@ -306,7 +302,21 @@ def train_sgns_device(generator: torch.Generator, walks: torch.Tensor,
                              (Bc, nc, cfg.negatives))
             sgns_step_classic(w_in, w_out, center, context, valid, neg, lr,
                               cfg)
-    return w_in
+    return w_in, w_out
+
+
+def train_sgns_device(generator: torch.Generator, walks: torch.Tensor,
+                      num_nodes: int, cfg: SGNSConfig = SGNSConfig(),
+                      prep: SGNSPrep | None = None) -> torch.Tensor:
+    """Train SGNS embeddings from the walk matrix `walks` [W, L] (a tensor;
+    training runs on its device, with `generator` a `torch.Generator` of
+    that device) and return the input table [num_nodes, dim] float32 on
+    the device. The loop reads nothing back to the host.
+
+    Nodes that no walk visits keep their (tiny random) init. Pass a
+    `prepare_sgns` result as `prep` to skip the noise-table build (it
+    depends only on the corpus)."""
+    return train_sgns_tables(generator, walks, num_nodes, cfg, prep)[0]
 
 
 def train_sgns(generator: torch.Generator, walks: torch.Tensor,

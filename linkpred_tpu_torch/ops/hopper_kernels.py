@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from linkpred_tpu_torch.kernels import build
+from linkpred_tpu_torch.ops.rows import add_rows_
 
 LAUNCHES = {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0, "sddmm_grad": 0}
 # the same launches by kernel and feature width, under keys "<kernel> F=<f>"
@@ -390,34 +391,40 @@ def sddmm_grad_reference(g: torch.Tensor, src: torch.Tensor,
                          y: torch.Tensor | None = None):
     """Plain PyTorch gradient of K2 for the cotangent `g` [E]: `(dx, dy)`
     with `dx[n] = sum_{e: src[e] = n} g[e] * y[dst[e]]` and `dy[n] = sum_{e:
-    dst[e] = n} g[e] * x[src[e]]`, summed in f32 by `index_add_` and rounded
-    once to the tables' type; with `y` None (one table) `(dx + dy, None)`.
-    A pair with an index outside its table contributes nothing, as it scored
-    0."""
+    dst[e] = n} g[e] * x[src[e]]`; with `y` None (one table) `(dx + dy,
+    None)`. A pair with an index outside its table contributes nothing, as
+    it scored 0.
+
+    Each product of an f32 cotangent and an f32 or bf16 row is exact in
+    float64; each row's products are summed in float64, in a fixed order
+    (`rows.add_rows_`), and rounded to the tables' type (bf16 through f32).
+    Hundreds of terms in f64 keep the sum's error some 1e-13 of its size,
+    so the f32 result is the exact sum rounded to within half an ulp (bar
+    a tie), and the same from run to run."""
     table = x if y is None else y
     keep = ((src >= 0) & (src < x.shape[0]) & (dst >= 0)
             & (dst < table.shape[0]))
     s = torch.where(keep, src, 0).long()
     d = torch.where(keep, dst, 0).long()
-    gk = g.float()[:, None]
+    gk = g.double()[:, None]
 
     def term(index, rows):
         # a dropped pair's row may hold NaN: select, do not multiply by 0
-        return index, torch.where(keep[:, None], gk * rows.float(), 0.0)
+        return index, torch.where(keep[:, None], gk * rows.double(), 0.0)
 
     into_x = term(s, table.index_select(0, d))
     into_y = term(d, x.index_select(0, s))
     f = x.shape[1]
+
+    def zeros(rows):
+        return torch.zeros((rows, f), dtype=torch.float64, device=x.device)
+
     if y is None:
-        out = torch.zeros((x.shape[0], f), dtype=torch.float32,
-                          device=x.device)
-        out.index_add_(0, torch.cat([into_x[0], into_y[0]]),
-                       torch.cat([into_x[1], into_y[1]]))
-        return out.to(x.dtype), None
-    dx = torch.zeros((x.shape[0], f), dtype=torch.float32, device=x.device)
-    dy = torch.zeros((y.shape[0], f), dtype=torch.float32, device=x.device)
-    return (dx.index_add_(0, *into_x).to(x.dtype),
-            dy.index_add_(0, *into_y).to(y.dtype))
+        out = add_rows_(zeros(x.shape[0]), torch.cat([into_x[0], into_y[0]]),
+                        torch.cat([into_x[1], into_y[1]]))
+        return out.float().to(x.dtype), None
+    return (add_rows_(zeros(x.shape[0]), *into_x).float().to(x.dtype),
+            add_rows_(zeros(y.shape[0]), *into_y).float().to(y.dtype))
 
 
 def sddmm_grad(g: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,

@@ -25,19 +25,21 @@ import torch
 
 from linkpred_tpu_torch.ops.hopper_kernels import (launch_order, spmm_bucketed,
                                                   spmm_ell)
+from linkpred_tpu_torch.ops.rows import add_rows
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int, mask: torch.Tensor | None = None
                 ) -> torch.Tensor:
     """Masked segment sum. `data` [E, ...], `segment_ids` [E] -> [S, ...].
-    Ids >= num_segments (capacity padding) are dropped."""
+    Ids >= num_segments (capacity padding) are dropped. A segment's terms
+    are added in a fixed order (`rows.add_rows`)."""
     if mask is not None:
         data = data * mask.reshape((-1,) + (1,) * (data.dim() - 1)).to(
             data.dtype)
     ids = segment_ids.long().clamp(max=num_segments)
     out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
-    return out.index_add(0, ids, data)[:num_segments]
+    return add_rows(out, ids, data)[:num_segments]
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,

@@ -33,6 +33,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from linkpred_tpu_torch.ops.rows import add_rows_
+
 # `all_gather_into_tensor` under the name that newer releases give it (the
 # same call; the old name warns there)
 all_gather_single = getattr(dist, "all_gather_single",
@@ -115,8 +117,8 @@ class _GatherById(torch.autograd.Function):
     def backward(ctx, g):
         own, local = ctx.saved_tensors
         dx = g.new_zeros((ctx.rows, g.shape[1]))
-        dx.index_add_(0, local[own], g[own])
-        return dx, None, None
+        # the pairs name rows more than once: a fixed-order sum
+        return add_rows_(dx, local[own], g[own]), None, None
 
 
 def gather_by_id(x: torch.Tensor, ids: torch.Tensor, group) -> torch.Tensor:

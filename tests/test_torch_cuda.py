@@ -1265,3 +1265,225 @@ def test_spmm_ell_split_kernel(cuda, d, f):
     assert torch.isfinite(runs[0]).all() and (runs[0][::5] == 0).all()
     torch.testing.assert_close(runs[0], ref, rtol=1e-5, atol=5e-5)
     assert torch.equal(runs[0], runs[1])
+
+
+# ---------------------------------------------------------------------------
+# fixed-order sums: the plain code between the kernels repeats bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _hub_ids(e, n, dev, seed, hub=0, named=4096):
+    """[e] int64 row ids in [0, n) on `dev`, `named` of them the hub row."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, n, (e,), generator=gen, device=dev)
+    at = torch.randperm(e, generator=gen, device=dev)[:named]
+    ids[at] = hub
+    return ids
+
+
+@pytest.mark.parametrize("f", [1, 25, 32, 100, 128])
+def test_add_rows_repeats_on_the_card(cuda, f):
+    """`add_rows_` and `add_rows` with one row named 4,096 times among
+    16,384 terms, at the SGNS widths (100, 128, a rank's slices 25 and 32)
+    and F = 1: two runs agree bit for bit, in place and out of place with
+    its gradient, and the sums lie within f32 rounding of float64 ones."""
+    from linkpred_tpu_torch.ops import rows
+
+    ids = _hub_ids(16_384, 300, cuda, f)
+    src = _x(16_384, f, torch.float32, cuda, f)
+    base = _x(300, f, torch.float32, cuda, f + 1)
+    runs = [rows.add_rows_(base.clone(), ids, src) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    exact = base.double().index_put((ids,), src.double(), accumulate=True)
+    torch.testing.assert_close(runs[0].double(), exact, rtol=1e-5,
+                               atol=1e-4)
+    outs = []
+    for _ in range(2):
+        s = src.clone().requires_grad_()
+        out = rows.add_rows(base, ids, s)
+        out.backward(base)
+        outs.append((out.detach(), s.grad))
+    assert torch.equal(outs[0][0], runs[0])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_segment_sum_repeats_on_the_card(cuda):
+    """`segment_sum` with a segment named 4,096 times, padding ids and a
+    mask: two runs agree bit for bit."""
+    ids = _hub_ids(16_384, 500, cuda, 7, hub=3)
+    ids[::97] = 600  # ids >= num_segments are dropped
+    mask = _x(16_384, 1, torch.float32, cuda, 8)[:, 0] > -1.0
+    data = _x(16_384, 64, torch.float32, cuda, 9)
+    runs = [seg.segment_sum(data, ids, 500, mask) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1]) and runs[0][3].abs().max() > 1
+
+
+@pytest.mark.parametrize("kind", ["pooled", "classic"])
+@pytest.mark.parametrize("d", [100, 128, 25])
+def test_sgns_step_repeats_on_the_card(cuda, kind, d):
+    """One SGNS step at the logistic family's width (100), phase (u)'s
+    (128) and a rank's slice of the former (25), with 8,192 centers x 8
+    contexts and row 0 named 4,096 times among the centers, the contexts
+    and the noise rows: two steps from the same tables and draws give the
+    same tables bit for bit."""
+    from linkpred_tpu_torch.models import word2vec as w2v
+
+    n, bc, nc = 20_000, 8192, 8
+    center = _hub_ids(bc, n, cuda, 1)
+    context = _hub_ids(bc * nc, n, cuda, 2).reshape(bc, nc)
+    valid = _x(bc * nc, 1, torch.float32, cuda, 3).reshape(bc, nc) > -0.3
+    if kind == "pooled":
+        noise, cfg = _hub_ids(512, n, cuda, 4, named=128), w2v.SGNSConfig(
+            dim=d, neg_pool=512)
+        step = w2v.sgns_step_pooled
+    else:
+        noise = _hub_ids(bc * nc * 5, n, cuda, 4).reshape(bc, nc, 5)
+        cfg, step = w2v.SGNSConfig(dim=d, neg_pool=0), w2v.sgns_step_classic
+    w_in = (_x(n, d, torch.float32, cuda, 5) - 0.5) / d
+    w_out = 0.01 * _x(n, d, torch.float32, cuda, 6)
+    runs = []
+    for _ in range(2):
+        a, b = w_in.clone(), w_out.clone()
+        step(a, b, center, context, valid, noise, 0.025, cfg)
+        runs.append((a, b))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert not torch.equal(runs[0][1], w_out)
+
+
+def test_gather_by_id_backward_repeats_on_the_card(cuda):
+    """The sharded gather's gradient into a rank's block, with one of its
+    rows named 4,096 times among 16,384 ids: two runs agree bit for bit."""
+    from types import SimpleNamespace
+
+    from linkpred_tpu_torch.parallel import collectives as C
+
+    ids = _hub_ids(16_384, 4 * 5000, cuda, 11, hub=5003)
+    own = (ids >= 5000) & (ids < 10_000)
+    ctx = SimpleNamespace(saved_tensors=(own, torch.where(own, ids - 5000,
+                                                          0)), rows=5000)
+    g = _x(16_384, 128, torch.float32, cuda, 12)
+    runs = [C._GatherById.backward(ctx, g)[0] for _ in range(2)]
+    assert torch.equal(runs[0], runs[1]) and runs[0][3].abs().max() > 1
+
+
+@pytest.mark.parametrize("two_tables", [False, True],
+                         ids=["one table", "two tables"])
+@pytest.mark.parametrize("f", [128, 33])
+def test_sddmm_grad_reference_repeats_six_times(cuda, f, two_tables):
+    """K2's plain gradient at E = 16,385 f32 with the hub runs of
+    `test_sddmm_grad_partial_and_straddling_windows`: six runs agree bit
+    for bit (float64 sums in a fixed order)."""
+    g, src, dst, x, y = _straddle_inputs(16_385, two_tables, torch.float32,
+                                         cuda, f)
+    runs = [hk.sddmm_grad_reference(g, src, dst, x, y) for _ in range(6)]
+    for run in runs[1:]:
+        assert all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(runs[0], run))
+
+
+def test_dgcnn_steps_repeat_on_the_card(cuda):
+    """Four DGCNN steps with dropout (its generator seeded) from the same
+    parameters, twice: the losses and every trained parameter agree bit for
+    bit (cuDNN's `conv1d` gradient is deterministic under `cuda_device()`,
+    the sort-pool gather names each row once)."""
+    from linkpred_tpu_torch.data import subgraph as sg
+    from linkpred_tpu_torch.models import seal
+
+    adj, mask, sizes = _subgraph_stack(4, P=96, K=40, p_edge=0.12)
+    tags, tsize = sg.compact_tags(
+        sg.drnl_tags(torch.as_tensor(adj), torch.as_tensor(mask)).numpy(),
+        mask)
+    rng = np.random.default_rng(5)
+    batch = sg.SubgraphBatch(
+        nodes=(rng.integers(0, 200, mask.shape) * mask).astype(np.int32),
+        node_mask=mask, adj=adj, sizes=sizes, tags=tags, tags_size=tsize)
+    emb = rng.standard_normal((200, 16)).astype(np.float32)
+    labels = rng.integers(0, 2, 96).astype(np.int32)
+    idx = torch.as_tensor(seal.batch_schedule(rng, np.arange(96), 32, 2),
+                          device=cuda)
+    k = seal.threshold_from_sizes(sizes, 60.0)
+    stack = seal.CompactStack.from_batch(batch, emb, labels, cuda)
+    runs = []
+    for _ in range(2):
+        p = seal.init_params(torch.Generator().manual_seed(0), tsize + 16, k,
+                             cuda)
+        loss = seal.train_steps(
+            p, seal.adam(p, 1e-3), idx, stack, k, seal.DROPOUT_RATE,
+            torch.Generator(device=cuda).manual_seed(1))
+        runs.append((loss, [t.detach() for t in seal.leaves(p)]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+# one short run of each path under `torch.use_deterministic_algorithms`
+# (warnings only), in a process of its own: the mode is global and needs
+# CUBLAS_WORKSPACE_CONFIG before cuBLAS starts. It prints the messages of
+# the ops that have no deterministic implementation on the card.
+DETERMINISM_PROBE = r"""
+import contextlib, dataclasses, io, json, os, sys, tempfile, warnings
+import numpy as np
+import torch
+from linkpred_tpu_torch.utils.device import cuda_device
+
+dev = cuda_device()
+torch.use_deterministic_algorithms(True, warn_only=True)
+from linkpred_tpu_torch.models import twowl as m
+from linkpred_tpu_torch.models import word2vec as w2v
+from linkpred_tpu_torch.pipelines import gcn_scale as gs
+from linkpred_tpu_torch.pipelines import seal_pipeline as sp
+from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
+from linkpred_tpu_torch.pipelines import twowl_scale as ts
+
+def twowl():
+    data = tp.build_data(*tp.load_edges(), tp.TwoWLRunConfig(),
+                         np.random.default_rng(0))
+    return tp.train_routine_fused(
+        data, m.TwoWLConfig(max_degree=data.max_degree, agg_1wl="ell"),
+        dataclasses.replace(tp.TwoWLRunConfig(), epochs=3), dev)
+
+seen = {}
+for name, run in (
+    ("sgns", lambda: w2v.train_sgns_device(
+        torch.Generator(device=dev).manual_seed(0),
+        torch.randint(0, 5000, (4096, 16), device=dev), 5000,
+        w2v.SGNSConfig(dim=128, epochs=1, batch_size=65_536))),
+    ("twowl", twowl),
+    ("gcn", lambda: gs.train_collab(gs.ScaleGCNConfig(
+        nodes=20_000, edges=100_000, steps=3), device=dev, verbose=False)),
+    ("twowl_scale", lambda: ts.run_twowl_scale(ts.ScaleTwoWLConfig(
+        nodes=5000, edges=25_000, epochs=2), device=dev, verbose=False)),
+    ("seal", lambda: sp.run_seal(sp.SEALConfig(
+        epochs=1, records_dir=tempfile.mkdtemp()), device=dev,
+        verbose=False, metrics_file=os.path.join(tempfile.mkdtemp(), "m"),
+        checkpoint_prefix=None))):
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stdout(io.StringIO()):
+        warnings.simplefilter("always")
+        run()
+        torch.cuda.synchronize()
+    seen[name] = sorted({str(w.message).split("\n")[0] for w in caught
+                         if "determinis" in str(w.message)})
+print(json.dumps(seen))
+"""
+
+
+def test_no_op_without_a_deterministic_implementation(cuda):
+    """Short runs of SGNS, one TwoWL trial, the GCN, TwoWL at scale and
+    SEAL under `torch.use_deterministic_algorithms(True, warn_only=True)`
+    warn of no op that has no deterministic implementation on the card
+    (the mode is not used by the package: it is a probe)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", DETERMINISM_PROBE], cwd=root,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(seen) == {"sgns", "twowl", "gcn", "twowl_scale", "seal"}
+    assert not any(seen.values()), seen
