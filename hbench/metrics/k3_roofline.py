@@ -1,0 +1,10 @@
+"""`k3_roofline.*`: percent of its roofline that K3 reaches over the
+step's K3 calls at the cell's operands (`work.roofline_share`): the least
+time of their bytes and operations over their CUDA-event times. Nothing
+when the cell's step makes no K3 call."""
+
+from hbench import work
+
+
+def read(ctx):
+    return work.roofline_share(ctx.ops, "k3")
