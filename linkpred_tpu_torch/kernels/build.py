@@ -8,6 +8,10 @@ the shared headers `csrc/*.cuh` and the flags, so an edited source is rebuilt
 and an unchanged one is not. `libraries(names)` runs one `nvcc` per source,
 all at once.
 
+A source's first load in a process is a `kernels.load` span
+(`utils.profiling`), with a nested `kernels.compile` around `nvcc` when its
+hashed library was missing, so a kernel built again shows by name.
+
 Nothing here runs at import: the CPU tests import every module, and this
 machine need not have `nvcc`.
 """
@@ -21,6 +25,8 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from linkpred_tpu_torch.utils.profiling import span
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -62,26 +68,32 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBRARIES.get(name)
     if lib is not None:
         return lib
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a private name and rename: concurrent builders of the
-        # same source never load a half-written library
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC_DIR / f"{name}.cu")],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        BUILD_LOGS[name] = proc.stdout + proc.stderr
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    with span("kernels.load"):
+        out = library_path(name)
+        if not out.exists():
+            with span("kernels.compile"):
+                _compile(name, out)
+        lib = ctypes.CDLL(str(out))
     _LIBRARIES[name] = lib
     return lib
+
+
+def _compile(name: str, out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a private name and rename: concurrent builders of the
+    # same source never load a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+         str(CSRC_DIR / f"{name}.cu")],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}")
+    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    os.replace(tmp, out)
 
 
 def libraries(names) -> dict[str, ctypes.CDLL]:

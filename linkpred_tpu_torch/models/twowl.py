@@ -42,6 +42,7 @@ from linkpred_tpu_torch.ops.segment import (
     segment_sum_planned,
 )
 from linkpred_tpu_torch.utils.metrics import roc_auc, roc_auc_trials
+from linkpred_tpu_torch.utils.profiling import mark_step, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -507,14 +508,19 @@ def train_step(params: dict, optimizer: torch.optim.Optimizer,
                num_nodes: int):
     """One masked minibatch step: remove the sampled positives from the
     message graph, recompute degrees, BCE on pos+neg pairs, Adam. Updates
-    `params` in place; returns (loss, logits, labels), detached."""
-    msg_mask, deg, sel, y = _step_inputs(pos_ids, neg_ids, arrays, cfg,
-                                         num_nodes)
-    logits = forward(params, cfg, deg, arrays, msg_mask, sel, generator)
-    loss = F.binary_cross_entropy_with_logits(logits, y)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
+    `params` in place and leaves no gradient; returns (loss, logits,
+    labels), detached."""
+    with span("twowl.inputs"):
+        msg_mask, deg, sel, y = _step_inputs(pos_ids, neg_ids, arrays, cfg,
+                                             num_nodes)
+    with span("twowl.forward"):
+        logits = forward(params, cfg, deg, arrays, msg_mask, sel, generator)
+        loss = F.binary_cross_entropy_with_logits(logits, y)
+    with span("twowl.backward"):
+        loss.backward()
+    with span("twowl.optimizer"):
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
     return loss.detach(), logits.detach(), y
 
 
@@ -543,6 +549,9 @@ def train_loop(params: dict, optimizer: torch.optim.Optimizer,
     per-epoch learning rates, is written into the optimizer's param groups
     before each step.
 
+    Each epoch is a `twowl.epoch` span (`utils.profiling`) over the train
+    step's phases and the val eval's `twowl.eval`.
+
     Returns (best_params, best_val_auc, since_best, (losses [E], aucs [E])).
     """
     device = val_y.device
@@ -567,27 +576,32 @@ def train_loop(params: dict, optimizer: torch.optim.Optimizer,
             if since_bound > early_stop:
                 since = since + (E - epoch)  # the reference counts frozen epochs
                 break
-        if lr_schedule is not None:
-            for group in optimizer.param_groups:
-                group["lr"] = float(lr_schedule[epoch])
-        loss, _, _ = train_step(params, optimizer, generator,
-                                pos_ids_epochs[epoch], neg_ids_epochs[epoch],
-                                trn, cfg, num_nodes)
-        with torch.no_grad():
-            losses[epoch] = loss
-            if epoch % eval_every == eval_every - 1:
-                logits = forward(params, cfg, node_deg, val, val_msg_mask,
-                                 val_sel)
-                auc = roc_auc(val_y, logits)
-                improved = auc > best_auc
-                for b, p in zip(best_leaves, leaves):
-                    b.copy_(torch.where(improved, p, b))
-                best_auc = torch.where(improved, auc, best_auc)
-                since = torch.where(improved, 0, since + 1)
-                aucs[epoch] = auc
-            else:
-                since = since + 1
+        with span("twowl.epoch"):
+            mark_step(device)
+            if lr_schedule is not None:
+                for group in optimizer.param_groups:
+                    group["lr"] = float(lr_schedule[epoch])
+            loss, _, _ = train_step(params, optimizer, generator,
+                                    pos_ids_epochs[epoch],
+                                    neg_ids_epochs[epoch], trn, cfg,
+                                    num_nodes)
+            with torch.no_grad():
+                losses[epoch] = loss
+                if epoch % eval_every == eval_every - 1:
+                    with span("twowl.eval"):
+                        logits = forward(params, cfg, node_deg, val,
+                                         val_msg_mask, val_sel)
+                        auc = roc_auc(val_y, logits)
+                        improved = auc > best_auc
+                        for b, p in zip(best_leaves, leaves):
+                            b.copy_(torch.where(improved, p, b))
+                        best_auc = torch.where(improved, auc, best_auc)
+                        since = torch.where(improved, 0, since + 1)
+                        aucs[epoch] = auc
+                else:
+                    since = since + 1
         since_bound += 1
+    mark_step(device, end=True)
     return best_params, best_auc, since, (losses, aucs)
 
 
@@ -835,14 +849,18 @@ def train_step_trials(params: dict, opt_state: TrialAdamState,
     per-trial BCE losses, so each trial's gradient is its own. Updates
     `params` and `opt_state` in place; returns the per-trial losses [T],
     detached."""
-    msg_mask, deg, sel, y = _step_inputs(pos_ids, neg_ids, arrays, cfg,
-                                         num_nodes)
-    logits = forward_trials(params, cfg, deg, arrays, msg_mask, sel,
-                            generator, rates)
-    per_trial = F.binary_cross_entropy_with_logits(
-        logits, y[:, None].expand_as(logits), reduction="none").mean(dim=0)
-    grads = torch.autograd.grad(per_trial.sum(), tree_leaves(params))
-    adam_trials_update(params, grads, opt_state, lrs)
+    with span("twowl.inputs"):
+        msg_mask, deg, sel, y = _step_inputs(pos_ids, neg_ids, arrays, cfg,
+                                             num_nodes)
+    with span("twowl.forward"):
+        logits = forward_trials(params, cfg, deg, arrays, msg_mask, sel,
+                                generator, rates)
+        per_trial = F.binary_cross_entropy_with_logits(
+            logits, y[:, None].expand_as(logits), reduction="none").mean(dim=0)
+    with span("twowl.backward"):
+        grads = torch.autograd.grad(per_trial.sum(), tree_leaves(params))
+    with span("twowl.optimizer"):
+        adam_trials_update(params, grads, opt_state, lrs)
     return per_trial.detach()
 
 
@@ -857,7 +875,7 @@ def train_loop_trials(params: dict, opt_state: TrialAdamState,
     """The reference's `train_scan_trials` as an epoch loop on the device:
     per epoch one trial-major step, every trial's val AUC
     (`roc_auc_trials`) and a per-trial select of the best-val parameters.
-    No early stop and no host read.
+    No early stop and no host read. The spans are `train_loop`'s.
 
     `init_best` = (best_params, best_aucs [T]) carries the best of earlier
     epochs (successive halving's rungs) and is updated in place. `params`
@@ -878,16 +896,20 @@ def train_loop_trials(params: dict, opt_state: TrialAdamState,
     losses = torch.zeros((E, lrs.shape[0]), device=device)
     aucs = torch.zeros((E, lrs.shape[0]), device=device)
     for epoch in range(E):
-        losses[epoch] = train_step_trials(
-            params, opt_state, generator, pos_ids_epochs[epoch],
-            neg_ids_epochs[epoch], trn, cfg, lrs, num_nodes, rates)
-        with torch.no_grad():
-            logits = forward_trials(params, cfg, node_deg, val, val_msg_mask,
-                                    val_sel)
-            auc = roc_auc_trials(val_y, logits)
-            improved = auc > best_auc
-            for b, p, ax in zip(best_leaves, leaves, axes):
-                b.copy_(torch.where(_bcast_trial(improved, p.dim(), ax), p, b))
-            best_auc.copy_(torch.where(improved, auc, best_auc))
-            aucs[epoch] = auc
+        with span("twowl.epoch"):
+            mark_step(device)
+            losses[epoch] = train_step_trials(
+                params, opt_state, generator, pos_ids_epochs[epoch],
+                neg_ids_epochs[epoch], trn, cfg, lrs, num_nodes, rates)
+            with torch.no_grad(), span("twowl.eval"):
+                logits = forward_trials(params, cfg, node_deg, val,
+                                        val_msg_mask, val_sel)
+                auc = roc_auc_trials(val_y, logits)
+                improved = auc > best_auc
+                for b, p, ax in zip(best_leaves, leaves, axes):
+                    b.copy_(torch.where(_bcast_trial(improved, p.dim(), ax),
+                                        p, b))
+                best_auc.copy_(torch.where(improved, auc, best_auc))
+                aucs[epoch] = auc
+    mark_step(device, end=True)
     return best_params, best_auc, (losses, aucs)
