@@ -306,12 +306,55 @@ def device_kernels(fn, calls=10):
         for start, duration, name in events:
             if last_end is not None and start - last_end > PROFILE_PAD_S * 5e5:
                 names = set()
-            names.add(name.removeprefix("void ").replace(
-                "(anonymous namespace)::", "").split("(")[0])
+            names.add(kernel_name(name))
             last_end = start + duration
         if names:
             return sorted(names)
     raise AssertionError("device_kernels: no capture held the calls")
+
+
+def kernel_name(name):
+    """A kernel's name as torch.profiler gives it, with template arguments
+    kept and the return type, anonymous namespace and argument list cut."""
+    return name.removeprefix("void ").replace(
+        "(anonymous namespace)::", "").split("(")[0]
+
+
+def traced_kernels(fn):
+    """Kernel name (`kernel_name`) -> the times the card ran it in `fn()`,
+    from one torch.profiler capture, kernels replayed from a CUDA graph
+    included. As in `profiled_ms`, `PROFILE_LEAD` small kernels, which the
+    profiler may lose, go first, and `PROFILE_TRAIL` follow; they are
+    counted too, as `add` kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lead = torch.zeros(32, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):
+            lead.add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(PROFILE_TRAIL):
+            lead.add_(1.0)
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = kernel_name(e.name)
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def wrapper_kernels(counts):
+    """K1's and K3's kernels among `traced_kernels`' counts, by wrapper
+    (`spmm_ell`, `spmm_bucketed`): each launch of a wrapper runs one kernel
+    whose name starts with the wrapper's."""
+    return {w: sum(n for k, n in counts.items() if k.startswith(w))
+            for w in ("spmm_ell", "spmm_bucketed")}
 
 
 def _step_capture(run, steps):
@@ -756,7 +799,8 @@ def launch_rates(run, hk):
     training run of `n` epochs or steps) adds per epoch or step: the
     wrappers' counts (`LAUNCHES_BY_WIDTH`) over `run(3)` less those over
     `run(2)`, so what a run does once (building, scoring the test split)
-    cancels."""
+    cancels. The counts are the host's launches: for a loop that replays
+    its epoch from a CUDA graph see `graph_launch_rates`."""
     def counted(n):
         hk.LAUNCHES_BY_WIDTH.clear()
         run(n)
@@ -765,6 +809,64 @@ def launch_rates(run, hk):
     two, three = counted(2), counted(3)
     return {k: v - two.get(k, 0) for k, v in three.items()
             if v - two.get(k, 0)}
+
+
+def graph_launch_rates(dev, hk, data, cfg, run, replays=10):
+    """`launch_rates` of the single-trial loop (`train_loop`), which
+    replays its epoch from a CUDA graph, so the wrappers count an epoch's
+    launches once, at the capture: the counts over the call that captures
+    (its epoch recorded once, then replayed), with the K1 and K3 kernels
+    that a device trace of `replays` replayed epochs shows per epoch, which
+    must be as many. Returns (launches by kernel and width, device kernels
+    per replayed epoch by wrapper)."""
+    from linkpred_tpu_torch.models import twowl as m
+    from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
+
+    pos_e, neg_e = (torch.as_tensor(a, dtype=torch.long, device=dev)
+                    for a in tp.batch_schedule(
+                        data, dataclasses.replace(run, epochs=2 + replays)))
+    inputs = (m.SplitArrays.from_split(data.train, dev),
+              m.SplitArrays.from_split(data.val, dev),
+              torch.as_tensor(data.val.y, device=dev),
+              tp.node_features(cfg, data, dev))
+    p = m.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    opt = m.adam(p, cfg.learning_rate)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    # the best carried from call to call, as a run cut into calls does: a
+    # fresh best each call would be a new address, and a new capture
+    best = (m.tree_map(lambda t: t.detach().clone(), p), 0.0)
+
+    def loop(a, b):
+        m.train_loop(p, opt, gen, pos_e[a:b], neg_e[a:b], *inputs, cfg,
+                     data.num_nodes, init_best=best)
+
+    def counted(fn):
+        launches, epochs = dict(hk.LAUNCHES_BY_WIDTH), dict(m.EPOCH_COUNTS)
+        fn()
+        return ({k: v - launches.get(k, 0)
+                 for k, v in hk.LAUNCHES_BY_WIDTH.items()
+                 if v - launches.get(k, 0)},
+                {k: v - epochs[k] for k, v in m.EPOCH_COUNTS.items()})
+
+    loop(0, 1)  # the optimizer's first epoch, op by op
+    rates, epochs = counted(lambda: loop(1, 2))
+    assert epochs == {"eager": 0, "replayed": 1, "captures": 1}, epochs
+    per_wrapper = {w: sum(v for k, v in rates.items()
+                          if k.startswith(w + " "))
+                   for w in ("spmm_ell", "spmm_bucketed")}
+    readings = []
+    for _ in range(3):  # a capture may lose events: at most three
+        ran = {}
+        host, epochs = counted(lambda: ran.update(
+            traced_kernels(lambda: loop(2, 2 + replays))))
+        assert not host and epochs == {
+            "eager": 0, "replayed": replays, "captures": 0}, (host, epochs)
+        readings.append({w: n / replays
+                         for w, n in wrapper_kernels(ran).items()})
+        if readings[-1] == per_wrapper:
+            return rates, readings[-1]
+    raise AssertionError(f"replayed epochs ran {readings} K1/K3 kernels, "
+                         f"the capture recorded {per_wrapper}")
 
 
 def gcn_phases(dev, hk):
@@ -3638,26 +3740,34 @@ def slice_phases(dev, hk, data, run, trn, rates):
                           dp_1wl0=0.0, dp_1wl1=0.0, dp_2wl=0.0,
                           learning_rate=1e-3)
     run_d = dataclasses.replace(run, epochs=E_d)
+    # `LAUNCHES` counts the host's launches, and an epoch replayed from the
+    # loop's CUDA graph makes none: the kernels the card ran are counted
+    # from a device trace of each run
     res_d = {}
     for agg in ("plan", "ell"):
-        before = dict(hk.LAUNCHES)
-        res_d[agg] = tp.train_routine_fused(
-            data, dataclasses.replace(cfg_d, agg_1wl=agg), run_d, dev)
+        before, epochs = dict(hk.LAUNCHES), dict(m.EPOCH_COUNTS)
+        ran = traced_kernels(lambda: res_d.update({agg: tp.train_routine_fused(
+            data, dataclasses.replace(cfg_d, agg_1wl=agg), run_d, dev)}))
         res_d[agg]["launches"] = {k: hk.LAUNCHES[k] - before[k]
                                   for k in before}
+        res_d[agg]["epochs"] = {k: m.EPOCH_COUNTS[k] - epochs[k]
+                                for k in epochs}
+        res_d[agg]["ran"] = wrapper_kernels(ran)
     l_plan, l_ell = res_d["plan"]["loss_history"], res_d["ell"]["loss_history"]
     assert np.isfinite(l_ell).all() and np.isfinite(l_plan).all()
     np.testing.assert_allclose(l_ell, l_plan, rtol=LOSS_RTOL)
     assert set(res_d["plan"]["launches"].values()) == {0}
-    launches_d = res_d["ell"]["launches"]
-    assert launches_d["spmm_ell"] >= 2 * cfg_d.depth1 * E_d, launches_d
-    assert launches_d["spmm_bucketed"] >= 2 * (1 + cfg_d.depth2) * E_d, \
-        launches_d
+    assert set(res_d["plan"]["ran"].values()) == {0}, res_d["plan"]["ran"]
+    ran_d, epochs_d = res_d["ell"]["ran"], res_d["ell"]["epochs"]
+    assert epochs_d["eager"] + epochs_d["replayed"] == E_d, epochs_d
+    assert ran_d["spmm_ell"] >= 2 * cfg_d.depth1 * E_d, ran_d
+    assert ran_d["spmm_bucketed"] >= 2 * (1 + cfg_d.depth2) * E_d, ran_d
     phase("d_ell_vs_plan", epochs=E_d,
           max_rel_loss_diff=float(np.max(np.abs(l_ell - l_plan)
                                          / np.abs(l_plan))),
           best_val={a: r["best_val"] for a, r in res_d.items()},
-          launches_ell=res_d["ell"]["launches"])
+          launches_ell=res_d["ell"]["launches"], ran_ell=ran_d,
+          epochs_ell=epochs_d)
 
     # (e) the slice: 200 epochs, reference dropouts, the 1-WL aggregation on
     # K1 and the 2-WL one on K3. The launch counts are zeroed just before
@@ -3693,9 +3803,12 @@ def slice_phases(dev, hk, data, run, trn, rates):
         p = m.init_params(c, torch.Generator().manual_seed(0), dev)
         opt = m.adam(p, c.learning_rate)
         g = torch.Generator(device=dev).manual_seed(1)
+        # one best for all calls, so the traced epochs are replays
+        best = (m.tree_map(lambda t: t.detach().clone(), p), 0.0)
         profiles[agg] = step_profile(
             lambda a, b: m.train_loop(p, opt, g, pos_e[a:b], neg_e[a:b],
-                                      *loop_inputs, c, data.num_nodes))
+                                      *loop_inputs, c, data.num_nodes,
+                                      init_best=best))
     phase("e_slice", epochs=E_e, best_val=res_e["best_val"],
           test_auc=res_e["test_auc"], launches=launches_e,
           epochs_per_s=(rate[0] + rate[3]) / 2,
@@ -3802,14 +3915,14 @@ def main():
     cfg_ell = m.TwoWLConfig(max_degree=data.max_degree, agg_1wl="ell")
     rates = {}
     if {"slice", "sweep"} & set(only):
-        rates = {
-            "slice": launch_rates(lambda n: tp.train_routine_fused(
-                data, cfg_ell, dataclasses.replace(run, epochs=n), dev), hk),
-            "sweep": launch_rates(lambda n: tp.refine_vmapped(
-                data, cfg_ell, dataclasses.replace(run, epochs=n),
-                n_trials=SWEEP_TRIALS, device=dev), hk),
-        }
-        phase("launch_rates", launches_per_epoch=rates)
+        rates["slice"], ran = graph_launch_rates(dev, hk, data, cfg_ell, run)
+        assert ran["spmm_ell"] >= 2 * cfg_ell.depth1, ran
+        assert ran["spmm_bucketed"] >= 2 * (1 + cfg_ell.depth2), ran
+        rates["sweep"] = launch_rates(lambda n: tp.refine_vmapped(
+            data, cfg_ell, dataclasses.replace(run, epochs=n),
+            n_trials=SWEEP_TRIALS, device=dev), hk)
+        phase("launch_rates", launches_per_epoch=rates,
+              slice_replayed_kernels_per_epoch=ran)
     trn = m.SplitArrays.from_split(data.train, dev)
 
     max_err = slice_phases(dev, hk, data, run, trn, rates) \

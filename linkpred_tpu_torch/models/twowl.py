@@ -24,7 +24,10 @@ paired=False)`; it is the semantic check of the paired path.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import weakref
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -488,8 +491,10 @@ def _step_inputs(pos_ids, neg_ids, arrays: SplitArrays, cfg: TwoWLConfig,
     num_msg = arrays.num_msg
     idx1 = double_index(pos_ids)
     idx2 = double_index(neg_ids) + num_msg
-    removed = torch.zeros(num_msg, dtype=torch.bool, device=device)
-    removed[idx1] = True
+    # a fill by index: `removed[idx1] = True` would copy the host's True to
+    # the card, which a CUDA graph's capture refuses
+    removed = torch.zeros(num_msg, dtype=torch.bool,
+                          device=device).index_fill_(0, idx1, True)
     msg_mask = ~removed
     if cfg.degree_feature:
         deg = segment_sum_planned(
@@ -549,60 +554,278 @@ def train_loop(params: dict, optimizer: torch.optim.Optimizer,
     per-epoch learning rates, is written into the optimizer's param groups
     before each step.
 
-    Each epoch is a `twowl.epoch` span (`utils.profiling`) over the train
-    step's phases and the val eval's `twowl.eval`.
+    On the calls that `_graph_path` admits (CUDA tensors, an optimizer that
+    can be captured, a val eval every epoch, no schedule, the composed
+    paired sum) the epochs after the first of an optimizer are replays of
+    one CUDA graph (`_EpochGraph`) of the same epoch, with the same
+    arithmetic and the same dropout masks; other calls run every epoch op
+    by op. `EPOCH_COUNTS` counts both kinds.
+
+    Each epoch is a `twowl.epoch` span (`utils.profiling`). An epoch run op
+    by op holds the train step's phases and the val eval's `twowl.eval`; a
+    replayed epoch holds one `twowl.replay`, and the phases open only in
+    the `twowl.capture` that records the graph.
 
     Returns (best_params, best_val_auc, since_best, (losses [E], aucs [E])).
     """
     device = val_y.device
     E = pos_ids_epochs.shape[0]
-    num_msg_v = val.num_msg
-    val_sel = num_msg_v + torch.arange(val.num_rows - num_msg_v,
-                                       device=device)
-    val_msg_mask = torch.ones(num_msg_v, dtype=torch.bool, device=device)
-
+    graph = None
+    if _graph_path(device, optimizer, trn, val, eval_every, lr_schedule):
+        graph = _EpochGraph.of(optimizer, device)
     if init_best is None:
         init_best = (tree_map(lambda p: p.detach().clone(), params), 0.0)
-    best_params, best_auc, since = (*init_best, 0)[:3]
+    best_params, best_auc_in, since_in = (*init_best, 0)[:3]
     best_leaves, leaves = tree_leaves(best_params), tree_leaves(params)
-    best_auc = torch.as_tensor(best_auc, dtype=torch.float32, device=device)
-    since_bound = int(since)  # host-side upper bound on `since`
-    since = torch.as_tensor(since, dtype=torch.long, device=device)
+    # a host-side upper bound on `since`, read from the card only for an
+    # early stop: a read waits for the card
+    since_bound = int(since_in) if early_stop is not None else 0
+    frozen = 0
     losses = torch.zeros(E, device=device)
     aucs = torch.full((E,), -1.0, device=device)
-    for epoch in range(E):
-        if early_stop is not None and since_bound > early_stop:
-            since_bound = int(since)
-            if since_bound > early_stop:
-                since = since + (E - epoch)  # the reference counts frozen epochs
-                break
-        with span("twowl.epoch"):
-            mark_step(device)
-            if lr_schedule is not None:
-                for group in optimizer.param_groups:
-                    group["lr"] = float(lr_schedule[epoch])
-            loss, _, _ = train_step(params, optimizer, generator,
-                                    pos_ids_epochs[epoch],
-                                    neg_ids_epochs[epoch], trn, cfg,
-                                    num_nodes)
+
+    with contextlib.nullcontext() if graph is None else graph.on_stream():
+        if graph is None:
+            val_sel, val_msg_mask = _val_rows(val, device)
+            best_auc = torch.empty((), dtype=torch.float32, device=device)
+            since = torch.empty((), dtype=torch.long, device=device)
+        else:
+            key = functools.partial(
+                _graph_key, optimizer, generator, pos_ids_epochs,
+                neg_ids_epochs, trn, val, val_y, node_deg, cfg, num_nodes,
+                leaves, best_leaves)
+            graph.bind(key(), pos_ids_epochs, neg_ids_epochs, val,
+                       (leaves, best_leaves, trn, val, val_y, node_deg))
+            val_sel, val_msg_mask = graph.val_sel, graph.val_msg_mask
+            best_auc, since = graph.best_auc, graph.since
+        best_auc.fill_(best_auc_in)  # a number or a 0-d tensor
+        since.fill_(since_in)
+
+        def epoch_fn(pos_ids, neg_ids, evaluate: bool) -> tuple:
+            """One epoch's train step and, with `evaluate`, its val eval;
+            `best_auc` and `since` are updated in place. (loss, auc or
+            None), 0-d."""
+            loss, _, _ = train_step(params, optimizer, generator, pos_ids,
+                                    neg_ids, trn, cfg, num_nodes)
             with torch.no_grad():
-                losses[epoch] = loss
-                if epoch % eval_every == eval_every - 1:
-                    with span("twowl.eval"):
-                        logits = forward(params, cfg, node_deg, val,
-                                         val_msg_mask, val_sel)
-                        auc = roc_auc(val_y, logits)
-                        improved = auc > best_auc
-                        for b, p in zip(best_leaves, leaves):
-                            b.copy_(torch.where(improved, p, b))
-                        best_auc = torch.where(improved, auc, best_auc)
-                        since = torch.where(improved, 0, since + 1)
-                        aucs[epoch] = auc
+                if not evaluate:
+                    since.add_(1)
+                    return loss, None
+                with span("twowl.eval"):
+                    logits = forward(params, cfg, node_deg, val,
+                                     val_msg_mask, val_sel)
+                    auc = roc_auc(val_y, logits)
+                    improved = auc > best_auc
+                    for b, p in zip(best_leaves, leaves):
+                        b.copy_(torch.where(improved, p, b))
+                    torch.where(improved, auc, best_auc, out=best_auc)
+                    since.add_(1).masked_fill_(improved, 0)
+                return loss, auc
+
+        for epoch in range(E):
+            if early_stop is not None and since_bound > early_stop:
+                since_bound = int(since)
+                if since_bound > early_stop:
+                    frozen = E - epoch  # the reference counts frozen epochs
+                    break
+            with span("twowl.epoch"):
+                mark_step(device)
+                if lr_schedule is not None:
+                    for group in optimizer.param_groups:
+                        group["lr"] = float(lr_schedule[epoch])
+                if graph is None:
+                    loss, auc = epoch_fn(
+                        pos_ids_epochs[epoch], neg_ids_epochs[epoch],
+                        epoch % eval_every == eval_every - 1)
+                    EPOCH_COUNTS["eager"] += 1
                 else:
-                    since = since + 1
-        since_bound += 1
-    mark_step(device, end=True)
-    return best_params, best_auc, since, (losses, aucs)
+                    loss, auc = graph.step(epoch_fn, pos_ids_epochs[epoch],
+                                           neg_ids_epochs[epoch], generator,
+                                           key)
+                losses[epoch] = loss
+                if auc is not None:
+                    aucs[epoch] = auc
+            since_bound += 1
+        mark_step(device, end=True)
+        result = best_auc.clone(), since + frozen
+    return best_params, *result, (losses, aucs)
+
+
+def _val_rows(val: SplitArrays, device) -> tuple:
+    """(rows scored, message mask) of the val eval: every prediction row,
+    over the whole message graph."""
+    num_msg = val.num_msg
+    return (num_msg + torch.arange(val.num_rows - num_msg, device=device),
+            torch.ones(num_msg, dtype=torch.bool, device=device))
+
+
+# ---------------------------------------------------------------------------
+# the single-trial epoch as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# `train_loop`'s epochs in this process by how they ran: "eager", op by op
+# from Python, or "replayed", one replay of the epoch's CUDA graph; and the
+# graphs captured ("captures"). `hopper_kernels.LAUNCHES` counts the host's
+# launches: a graph's kernel launches count there at its capture, not at
+# its replays.
+EPOCH_COUNTS = {"eager": 0, "replayed": 0, "captures": 0}
+
+
+def _graph_path(device: torch.device, optimizer: torch.optim.Optimizer,
+                trn: SplitArrays, val: SplitArrays, eval_every: int,
+                lr_schedule) -> bool:
+    """Whether `train_loop` runs its epochs as graph replays, from what the
+    call shows: tensors on CUDA; an optimizer whose step can be captured
+    (each group has torch's `capturable` option, and it is on or the
+    optimizer has not stepped yet, so that `_EpochGraph.of` can turn it
+    on); a val eval every epoch and no learning-rate schedule, so that
+    every epoch does the same work; and both splits' paired 2-WL sums the
+    composed gather-sum (a sharded split's sum completes over ranks,
+    `parallel.dp.shard_twowl_split`)."""
+    groups = optimizer.param_groups
+    return (device.type == "cuda" and lr_schedule is None
+            and eval_every == 1
+            and trn.paired_sum is gather_sum_composed
+            and val.paired_sum is gather_sum_composed
+            and all("capturable" in g for g in groups)
+            and (not optimizer.state or all(g["capturable"] for g in groups)))
+
+
+def _signature(obj):
+    """What a CUDA graph bakes in of `obj`: each tensor's address, shape,
+    strides and dtype, through dataclasses, named tuples, tuples and lists;
+    any other value as it is (compared by `==`; a function or a generator
+    by identity)."""
+    if isinstance(obj, torch.Tensor):
+        return (obj.data_ptr(), tuple(obj.shape), obj.stride(), obj.dtype)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return tuple(_signature(getattr(obj, f.name))
+                     for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return tuple(_signature(o) for o in obj)
+    return obj
+
+
+def _graph_key(optimizer: torch.optim.Optimizer,
+               generator: torch.Generator | None,
+               pos_ids_epochs: torch.Tensor, neg_ids_epochs: torch.Tensor,
+               trn: SplitArrays, val: SplitArrays, val_y: torch.Tensor,
+               node_deg: torch.Tensor, cfg: TwoWLConfig, num_nodes: int,
+               leaves: list, best_leaves: list) -> tuple:
+    """`_signature` of all that a `train_loop` call's epoch graph reads or
+    writes by address, with the optimizer's hyperparameters and state, the
+    dropout generator, `cfg` and `num_nodes`; of the pair ids, whose epoch
+    rows are copied into the graph's own buffers, only their shape and
+    type."""
+    hyper = [tuple((k, _signature(v)) for k, v in sorted(g.items())
+                   if k != "params") for g in optimizer.param_groups]
+    state = [_signature(v) for p in leaves
+             for v in optimizer.state.get(p, {}).values()]
+    ids = [(t.shape[1:], t.dtype, t.device)
+           for t in (pos_ids_epochs, neg_ids_epochs)]
+    return _signature((leaves, best_leaves, state, hyper, trn, val, val_y,
+                       node_deg, cfg, num_nodes, generator, ids))
+
+
+class _EpochGraph:
+    """One epoch of the single-trial `train_loop` as a CUDA graph, kept for
+    one optimizer as long as it lives (`_GRAPHS`): `_step_inputs`, the
+    forward with dropout, the BCE loss and its backward, Adam's step and
+    `zero_grad`, the val forward, its AUC and the best-val select. It works
+    on static tensors (`bind`): the epoch's pair ids and the best AUC and
+    the epochs since it, which the host fills, and the loss and AUC of the
+    capture, which each replay writes anew. Parameters, Adam's state and
+    the best leaves are updated in place, so their addresses stay.
+
+    Its key (`_graph_key`) changes with any address the graph holds: a
+    call with another key gets new static tensors, one epoch op by op and
+    a new capture, never a stale replay. The epoch op by op comes first
+    because it makes Adam's state and every lazy handle (kernel libraries,
+    cuBLAS's workspace) outside the capture; it is real training, as every
+    replay is. The generator is registered with the graph, so a replay
+    draws the same stream of dropout masks, in the same order, as an epoch
+    op by op. All of it runs on the graph's own stream (`on_stream`),
+    epochs op by op too, so cuBLAS keeps one workspace."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.key = None
+        self.graph = None
+
+    @classmethod
+    def of(cls, optimizer: torch.optim.Optimizer,
+           device: torch.device) -> "_EpochGraph":
+        """The optimizer's graph, made at its first call; an optimizer that
+        has not stepped is made `capturable` then, so its step counts and
+        bias corrections live on the card (an optimizer run only op by op
+        is left as it was made)."""
+        graph = _GRAPHS.get(optimizer)
+        if graph is None:
+            for group in optimizer.param_groups:
+                group["capturable"] = True
+            graph = _GRAPHS[optimizer] = cls(device)
+        return graph
+
+    @contextlib.contextmanager
+    def on_stream(self):
+        """Run the block on the graph's stream, after the caller's stream's
+        work and before its next."""
+        caller = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            yield
+        caller.wait_stream(self.stream)
+
+    def bind(self, key: tuple, pos_ids_epochs: torch.Tensor,
+             neg_ids_epochs: torch.Tensor, val: SplitArrays, refs: tuple):
+        """Keep the graph when `key` is its own; else drop it and make the
+        static tensors anew, on the current stream. `refs` are kept alive
+        while the graph may replay, so no address it holds is reused."""
+        if key == self.key:
+            return
+        device = pos_ids_epochs.device
+        self.key, self.graph, self.warm, self.refs = key, None, False, refs
+        self.pos = torch.empty(pos_ids_epochs.shape[1:],
+                               dtype=pos_ids_epochs.dtype, device=device)
+        self.neg = torch.empty(neg_ids_epochs.shape[1:],
+                               dtype=neg_ids_epochs.dtype, device=device)
+        self.val_sel, self.val_msg_mask = _val_rows(val, device)
+        self.best_auc = torch.zeros((), device=device)
+        self.since = torch.zeros((), dtype=torch.long, device=device)
+
+    def step(self, epoch_fn: Callable, pos_ids: torch.Tensor,
+             neg_ids: torch.Tensor, generator: torch.Generator | None,
+             key: Callable) -> tuple:
+        """One epoch on `pos_ids` and `neg_ids`, copied into the static
+        buffers: a replay, else (a new key's first epoch) `epoch_fn` op by
+        op, else the capture of `epoch_fn` and its first replay. `key()` is
+        the call's key, read again after the epoch op by op has made Adam's
+        state. Returns `epoch_fn`'s (loss, auc)."""
+        self.pos.copy_(pos_ids)
+        self.neg.copy_(neg_ids)
+        if self.graph is None and not self.warm:
+            out = epoch_fn(self.pos, self.neg, True)
+            self.key, self.warm = key(), True
+            EPOCH_COUNTS["eager"] += 1
+            return out
+        if self.graph is None:
+            with span("twowl.capture"):
+                graph = torch.cuda.CUDAGraph()
+                if generator is not None:
+                    graph.register_generator_state(generator)
+                with torch.cuda.graph(graph, stream=self.stream):
+                    self.out = epoch_fn(self.pos, self.neg, True)
+            self.graph = graph
+            EPOCH_COUNTS["captures"] += 1
+        with span("twowl.replay"):
+            self.graph.replay()
+        EPOCH_COUNTS["replayed"] += 1
+        return self.out
+
+
+# optimizer -> its `_EpochGraph`; an entry goes with its optimizer
+_GRAPHS: "weakref.WeakKeyDictionary[torch.optim.Optimizer, _EpochGraph]" = \
+    weakref.WeakKeyDictionary()
 
 
 @torch.no_grad()

@@ -5,7 +5,10 @@ Each kernel has a plain PyTorch version beside it. A wrapper takes that
 version only for tensors that lie on the CPU (the tests); for CUDA tensors it
 launches the kernel or raises, with no fallback. `LAUNCHES` counts the
 kernel launches of each wrapper, so a run can show that it went through the
-kernel; `LAUNCHES_BY_WIDTH` counts the same launches by feature width.
+kernel; `LAUNCHES_BY_WIDTH` counts the same launches by feature width. Both
+count the host's launches: a launch recorded into a CUDA graph counts once,
+at the capture, and the graph's replays add nothing (`models/twowl.
+EPOCH_COUNTS` counts the single-trial loop's replays).
 
     K1 spmm_ell       csrc/spmm_ell.cu       ELL SpMM, f32
     K3 spmm_bucketed  csrc/spmm_bucketed.cu  bucketed ELL SpMM, f32 or bf16
@@ -66,6 +69,7 @@ import torch
 from linkpred_tpu_torch.kernels import build
 from linkpred_tpu_torch.ops.rows import add_rows_
 
+# host launches by wrapper: a CUDA graph's kernels count at its capture only
 LAUNCHES = {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0, "sddmm_grad": 0}
 # the same launches by kernel and feature width, under keys "<kernel> F=<f>"
 LAUNCHES_BY_WIDTH: dict[str, int] = {}

@@ -8,7 +8,12 @@ card ends the span's body with `torch.cuda.synchronize()`, since PyTorch
 returns before the card finishes.
 
 `span(name)` marks a phase of the program (the TwoWL epoch loops, the
-kernel loader). Outside `recording()` it costs one check of a module-level
+kernel loader). Where the single-trial loop replays its epoch as a CUDA
+graph (`models/twowl.train_loop`), a replayed epoch's span holds one
+`twowl.replay` and no phase span (`twowl.inputs`, `twowl.forward`,
+`twowl.backward`, `twowl.optimizer`, `twowl.eval`): the phases open only
+while the graph is recorded, inside `twowl.capture`, and in the epochs run
+op by op. Outside `recording()` it costs one check of a module-level
 flag and returns a shared no-op context: no clock is read. Inside, each
 span is kept in memory as a `Span` (name, id, parent id, start and end on
 `time.perf_counter_ns`), and while a `torch.profiler` is running it also
