@@ -6,9 +6,9 @@ own size, in one process:
 
 For each seed of `--seeds` the program's first three steps against the
 reference (sound runs: the lower readings); for each of `--control-seeds`
-the reference at the precision below the configuration's (TF32 for f32)
-put in the program's place; for each of `--fault-seeds` the program with
-each fault of `faults.py` that needs a run (`half_batch`; a state left
+the reference at the precision below the configuration's (its driver's
+`CONTROL_PRECISION`, TF32 for f32) put in the program's place; for each of
+`--fault-seeds` the program with each fault of `faults.py` that needs a run (`half_batch`; a state left
 unchanged reads 1 by the measure). Each reading is printed as a JSON line
 and the lot written to `<out>/calibrate-<workload>.json`. No window is run: the readings need
 none. The benchmark's runs never run this.
@@ -23,8 +23,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
-
-CONTROL = {"f32": "tf32"}
 
 
 def main(argv=None) -> int:
@@ -48,7 +46,7 @@ def main(argv=None) -> int:
     config = harness.load_data("configs", cell["config"])
     traffic = harness.load_data("traffic", cell["traffic"])
     drv = harness.driver(config)
-    dtype = config["model"]["dtype"]
+    control = harness.control_precision(config)
     built = drv.build(config, traffic, device)
     rows = []
 
@@ -67,8 +65,8 @@ def main(argv=None) -> int:
         record("program", seed, r)
     for seed in args.control_seeds:
         run = started(seed)
-        record(f"control_{CONTROL[dtype]}", seed,
-               drv.readings(run, control_precision=CONTROL[dtype]))
+        record(f"control_{control}", seed,
+               drv.readings(run, control_precision=control))
     for seed in args.fault_seeds:
         with faults.half_batch():
             run = started(seed)

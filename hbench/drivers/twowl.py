@@ -27,6 +27,9 @@ from hbench.reference import twowl as ref
 DATA_DIR = Path(__file__).resolve().parents[1] / "data"
 CHECKED_STEPS = 3
 TRACE_STEPS = 10  # epochs in a profiler capture
+# the control of each precision the family runs: the reference one step
+# below it (`reference/precision.py`) in the program's place
+CONTROL_PRECISION = {"f32": "tf32"}
 ADAM_B1 = 0.9  # the first moment's decay of both optimizers
 
 

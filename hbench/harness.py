@@ -1,18 +1,34 @@
-"""The benchmark's engine, driven by data: `BENCHMARK.json` names the cell;
-its configuration is `configs/<config>.json` (which names its driver,
-`drivers/<driver>.py`), its traffic `traffic/<traffic>.json`, the limits of
-its check `limits/<workload>.json`, and each per-layer metric's reader
-`metrics/<metric>.py` (or `metrics/<name before the first dot>.py`). A new
-cell, configuration or metric is new files and entries; no file here needs
-an edit for it.
+"""The benchmark's engine, driven by data: `BENCHMARK.json` names the cell,
+and the harness finds everything else by name. A new configuration and its
+cell are new files and new entries; no file here needs an edit for them:
+
+- `configs/<config>.json`: the sizes as run; it names its driver
+  (`"driver"`) and states its precision (`"model"`'s `"dtype"`);
+- `drivers/<driver>.py` (only for a new family): `build`, `start` (the
+  `Run`: `chunk`, `run_steps`, `rates_of`, `ops`, `flops_per_step`,
+  `release`), `readings`, `TRACE_STEPS`, `CONTROL_PRECISION` (the control
+  for each precision it runs), and optionally `SPAN_STEPS`;
+- `reference/<family>.py` (only for a new family): its plain reference;
+- `traffic/<traffic>.json`: the mix's parameters;
+- `limits/<workload>.json`: the limit of each number the check compares;
+- `small/<workload>.json`: `{"config": {...}, "traffic": {...}}`, the
+  top-level keys that the CPU tests replace to run the cell small;
+- `metrics/<metric>.py` (or `metrics/<name before the first dot>.py`): the
+  reader of each per-layer metric, where no reader exists yet.
+
+In `BENCHMARK.json` a new configuration adds an entry to `configs`, its
+cell one to `workloads`, and the cell's name is appended to the `workloads`
+list of each end-to-end and per-layer metric it reports (or a new metric
+entry lists it).
 
 A run: the driver builds (the port's host build, timed as `build_s`) and
 starts the cell from the seed (weights, schedule, the checked first steps,
 the warm-up); `setup_s` ends there. The window then calls the driver's
 chunk until `seconds` have passed and waits for the card. With `trace` the
-run adds a profiled stretch and the ops' timings and reports the per-layer
-metrics instead. Last the program's state is freed and the reference
-judges the checked steps.
+run reports the per-layer metrics instead: the port's spans are recorded
+over set-up and over a stretch of epochs after the window (`spans.py`, only
+in traced runs), then profiler captures and the ops' timings follow. Last
+the program's state is freed and the reference judges the checked steps.
 """
 
 from __future__ import annotations
@@ -59,6 +75,24 @@ def reported(metrics: list, cell: str) -> list:
 
 def driver(config: dict):
     return importlib.import_module(f"hbench.drivers.{config['driver']}")
+
+
+def small(name: str) -> tuple[dict, dict]:
+    """The overrides of cell `name`'s configuration and traffic at which
+    the CPU tests run it (`small/<workload>.json`)."""
+    sizes = load_data("small", name)
+    return sizes["config"], sizes["traffic"]
+
+
+def control_precision(config: dict) -> str:
+    """The control of a configuration: the precision below the one it
+    states, as its driver names it (`CONTROL_PRECISION`)."""
+    dtype = config["model"]["dtype"]
+    controls = driver(config).CONTROL_PRECISION
+    if dtype not in controls:
+        raise KeyError(f"driver {config['driver']!r} names no control for "
+                       f"{dtype!r}: {controls}")
+    return controls[dtype]
 
 
 def reader(metric: str):
@@ -151,12 +185,18 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
         torch.cuda.reset_peak_memory_stats(device)
 
     log(f"imports and card {time.perf_counter() - t_start:.3f} s")
+    if trace:
+        from hbench import spans
+
+        handle = spans.begin()
     built = drv.build(config, traffic, device)
     log(f"built {time.perf_counter() - t_start:.3f} s (port's build "
         f"{built['build_s']:.3f} s)")
     run = drv.start(built, config, traffic, seed, device)
     _sync(device)
     setup_s = time.perf_counter() - t_start
+    if trace:
+        setup_spans = spans.end(handle)
     log(f"set-up {setup_s:.3f} s")
 
     steps, window_s = timed_window(run, seconds, device)
@@ -166,6 +206,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
         ctx = SimpleNamespace(build_s=built["build_s"],
                               steps_per_s=steps / window_s)
         ctx.flops_per_step, ctx.flops_dtype = run.flops_per_step()
+        # the span stretch comes before any profiler capture: a capture
+        # slows the rest of its process
+        ctx.spans = spans.collect(
+            run, device, setup_spans, capture_steps=0,
+            steps=getattr(drv, "SPAN_STEPS", spans.STRETCH_STEPS))
         from hbench import trace as tr
 
         ctx.trace = tr.profile_steps(run.run_steps, drv.TRACE_STEPS)

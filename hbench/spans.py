@@ -16,7 +16,8 @@ numbers of a cell, in three parts:
 before any other profiler capture of the process, since a capture with the
 card's activity slows the rest of its process. Recording is off outside
 these parts. The readers in `metrics/` read what `collect` returns as
-`ctx.spans`.
+`ctx.spans`. A traced run of `run.py` (`harness.run_cell`) makes (a) and
+(b) and skips (c), which no reader reads; the tool below makes all three.
 
     python3 hbench/spans.py --workload <cell> --seed <n> --seconds <s>
 
@@ -154,11 +155,11 @@ def capture(run_steps, steps: int) -> dict | None:
 
 def collect(run, device, setup, capture_steps: int,
             steps: int = STRETCH_STEPS) -> dict:
-    """(b), then (c), with (a)'s spans: what the readers take as
-    `ctx.spans`."""
+    """(b), then (c) unless `capture_steps` is 0, with (a)'s spans: what
+    the readers take as `ctx.spans`."""
     return {"setup": setup, "stretch": stretch(run, device, steps),
             "idle": (capture(run.run_steps, capture_steps)
-                     if device.type == "cuda" else None)}
+                     if device.type == "cuda" and capture_steps else None)}
 
 
 # -- what the readers read ----------------------------------------------------

@@ -96,3 +96,46 @@ def test_a_run_with_spans_on_the_cpu(cpu):
     assert out["phases_self_sum_ms"] == pytest.approx(m["host_ms.epochs"],
                                                       rel=0.5)
     assert out["epoch_samples"] == 0 and out["idle"] is None
+
+
+def test_a_traced_run_reads_the_spans_before_any_capture(monkeypatch, cpu):
+    """`harness.run_cell` with `trace` on the CPU, the card's captures and
+    op timings faked: set-up's spans and a stretch of the driver's length
+    after the window are taken before the first profiler capture, and the
+    span metrics that the cell lists read where the CPU has them (the epoch
+    tail is the card's events)."""
+    from hbench import trace
+
+    order = []
+    stretch = spans.stretch
+
+    def spy_stretch(run, device, steps):
+        order.append(("stretch", steps))
+        return stretch(run, device, steps)
+
+    def fake_profile(run_steps, steps):
+        order.append(("profile", steps))
+        return {"steps": steps, "device_ops": 1, "busy_s": 1.0,
+                "window_s": 2.0, "captures_busy_s": [1.0], "top_ops": [],
+                "idle_gaps": []}
+
+    monkeypatch.setattr(spans, "stretch", spy_stretch)
+    monkeypatch.setattr(spans, "STRETCH_STEPS", 4)
+    monkeypatch.setattr(trace, "profile_steps", fake_profile)
+    monkeypatch.setattr(trace, "time_ops", lambda ops: [])
+    out = harness.run_cell("twowl-fbpages.trial1", 3000000013, 0.2, True,
+                           cpu, 0.0)
+    assert out["correct"], out["checks"]
+    assert [kind for kind, _ in order] == ["stretch", "profile"]
+    assert order[0][1] == 4
+    listed = {m["name"] for m in harness.reported(
+        harness.load_spec()["per_layer"], "twowl-fbpages.trial1")
+        if m["source"] == "program_span"}
+    assert listed == {"host_ms.epochs", "epoch_ms_p50.epochs",
+                      "epoch_ms_p95.epochs", "kernel_load_s.setup",
+                      "first_epoch_s.setup"}
+    read = {k: v["value"] for k, v in out["metrics"].items() if k in listed}
+    assert set(read) == listed - {"epoch_ms_p50.epochs",
+                                  "epoch_ms_p95.epochs"}
+    assert read["host_ms.epochs"] > 0 and read["first_epoch_s.setup"] > 0
+    assert read["kernel_load_s.setup"] == 0.0  # plain versions on the CPU

@@ -162,3 +162,59 @@ def test_a_cell_added_by_files_alone_is_listed_and_runs(tmp_path, monkeypatch,
     assert out["correct"], out["checks"]
     assert set(out["metrics"]) == {"setup_s", "trial_epochs_per_s",
                                    "peak_mem_gib"}
+
+
+def test_a_configuration_added_by_files_alone_is_listed_and_runs(
+        tmp_path, monkeypatch, cpu):
+    """A second configuration and a cell on it, as new files in a copy of
+    `hbench/` (its configuration, traffic, limits and small size) and new
+    entries in a copy of the spec (the configuration, the cell, and the
+    cell appended to `epochs_per_s`'s and `host_ms.epochs`'s lists): the
+    harness lists the cell and its metrics, the check tests find its small
+    size and its control, and it runs correct on the CPU."""
+    base = tmp_path / "hbench"
+    shutil.copytree(harness.HB, base,
+                    ignore=shutil.ignore_patterns("cache", "__pycache__"))
+    config = json.loads((base / "configs" / "twowl-fbpages.json").read_text())
+    config["name"] = "twowl-copy"
+    (base / "configs" / "twowl-copy.json").write_text(json.dumps(config))
+    (base / "traffic" / "short.json").write_text(json.dumps(
+        {"loop": "single", "schedule_epochs": 40, "chunk_epochs": 4}))
+    (base / "limits" / "twowl-copy.short.json").write_text(
+        (base / "limits" / "twowl-fbpages.trial1.json").read_text())
+    (base / "small" / "twowl-copy.short.json").write_text(json.dumps(
+        {"config": {}, "traffic": {"schedule_epochs": 12}}))
+    spec = json.loads(json.dumps(SPEC))
+    spec["configs"].append(
+        {"name": "twowl-copy", "source": "https://arxiv.org/abs/2206.09567",
+         "file": "hbench/configs/twowl-copy.json", "reduced": [],
+         "why": "a throwaway configuration"})
+    spec["workloads"].append({"name": "twowl-copy.short",
+                              "config": "twowl-copy", "traffic": "short",
+                              "chips": 1, "why": "a throwaway cell"})
+    for group, metric in (("end_to_end", "epochs_per_s"),
+                          ("per_layer", "host_ms.epochs")):
+        entry = next(m for m in spec[group] if m["name"] == metric)
+        entry["workloads"].append("twowl-copy.short")
+    monkeypatch.setattr(harness, "HB", base)
+
+    assert "twowl-copy.short" in [w["name"] for w in spec["workloads"]]
+    assert harness.workload(spec, "twowl-copy.short")["config"] == \
+        "twowl-copy"
+    assert {m["name"] for m in harness.reported(
+        spec["end_to_end"], "twowl-copy.short")} == {
+        "setup_s", "epochs_per_s", "peak_mem_gib"}
+    assert {m["name"] for m in harness.reported(
+        spec["per_layer"], "twowl-copy.short")} == {"host_ms.epochs"}
+    small_config, small_traffic = harness.small("twowl-copy.short")
+    assert small_traffic == {"schedule_epochs": 12}
+    loaded = harness.load_data("configs", "twowl-copy")
+    assert loaded["name"] == "twowl-copy"
+    assert harness.control_precision(loaded) == "tf32"
+    out = harness.run_cell("twowl-copy.short", 3000000011, 0.2, False, cpu,
+                           0.0, spec, small_config, small_traffic)
+    assert out["correct"], out["checks"]
+    assert set(out["metrics"]) == {"setup_s", "epochs_per_s",
+                                   "peak_mem_gib"}
+    assert set(out["checks"]) == set(
+        harness.load_data("limits", "twowl-copy.short"))
