@@ -14,6 +14,12 @@ graph; dropout off; the 2-WL stack in bf16; Adam under a warm-up cosine
 schedule; a val pass every `eval_every` epochs. With `agg_1wl='ell'` the
 1-WL aggregation runs on kernel K1 and the 2-WL composed gather-sum, forward
 and backward, on kernel K3.
+
+Set-up opens three spans (`utils.profiling`): `twowl_scale.split` over the
+graph and split build (`build_scale_data`), `twowl_scale.n2v` over the
+node2vec run and its copy into the node table (`seed_node_table`) and
+`twowl_scale.operands` over the device operands of the train and val
+splits (`split_operands`).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from linkpred_tpu_torch.ops.walk import WalkEngine
 from linkpred_tpu_torch.pipelines.gcn_scale import resolve_graph_source
 from linkpred_tpu_torch.pipelines.twowl_pipeline import (evaluate,
                                                          node_features)
+from linkpred_tpu_torch.utils.profiling import span
 from linkpred_tpu_torch.utils.progress import LiveProgress
 
 
@@ -91,24 +98,35 @@ PROGRESS_EPOCHS = 16
 def build_scale_data(cfg: ScaleTwoWLConfig) -> TwoWLData:
     """The capped graph and its three TwoWL splits, on the host, array-equal
     to the JAX package's: the same functions called in the same order on the
-    same `np.random.default_rng(cfg.seed)`."""
-    cfg, pairs_override = resolve_graph_source(cfg)
-    rng = np.random.default_rng(cfg.seed)
-    if pairs_override is not None:
-        lo, hi = pairs_override
-    else:
-        synth = (synth_community_graph if cfg.graph == "community"
-                 else synth_powerlaw_graph)
-        lo, hi = synth(cfg.nodes, cfg.edges, seed=cfg.seed)
-    g = Graph.from_undirected_edges(lo, hi, num_nodes=cfg.nodes)
-    g = g.with_degree_cap(cfg.max_degree, rng=rng, symmetric=True)
-    pairs = np.stack([g.src, g.dst], axis=1)
-    pairs = pairs[pairs[:, 0] < pairs[:, 1]]  # undirected pairs once
-    return build_twowl_data(
-        pairs, cfg.nodes, rng=rng,
-        val_ratio=cfg.val_ratio, test_ratio=cfg.test_ratio,
-        ei2_cap_per_node=cfg.ei2_cap_per_node,
-    )
+    same `np.random.default_rng(cfg.seed)`. A `twowl_scale.split` span."""
+    with span("twowl_scale.split"):
+        cfg, pairs_override = resolve_graph_source(cfg)
+        rng = np.random.default_rng(cfg.seed)
+        if pairs_override is not None:
+            lo, hi = pairs_override
+        else:
+            synth = (synth_community_graph if cfg.graph == "community"
+                     else synth_powerlaw_graph)
+            lo, hi = synth(cfg.nodes, cfg.edges, seed=cfg.seed)
+        g = Graph.from_undirected_edges(lo, hi, num_nodes=cfg.nodes)
+        g = g.with_degree_cap(cfg.max_degree, rng=rng, symmetric=True)
+        pairs = np.stack([g.src, g.dst], axis=1)
+        pairs = pairs[pairs[:, 0] < pairs[:, 1]]  # undirected pairs once
+        return build_twowl_data(
+            pairs, cfg.nodes, rng=rng,
+            val_ratio=cfg.val_ratio, test_ratio=cfg.test_ratio,
+            ei2_cap_per_node=cfg.ei2_cap_per_node,
+        )
+
+
+def split_operands(data: TwoWLData, device) -> tuple:
+    """The (train, val) `SplitArrays` on `device`, ready on return. A
+    `twowl_scale.operands` span."""
+    with span("twowl_scale.operands"):
+        arrays = (m.SplitArrays.from_split(data.train, device),
+                  m.SplitArrays.from_split(data.val, device))
+        _sync(torch.device(device))
+    return arrays
 
 
 def model_config(cfg: ScaleTwoWLConfig, data: TwoWLData,
@@ -147,6 +165,17 @@ def n2v_embeddings(cfg: ScaleTwoWLConfig, data: TwoWLData, device,
         data.num_nodes,
         SGNSConfig(dim=cfg.channels_1wl, window=5, epochs=cfg.n2v_epochs,
                    batch_size=65536))
+
+
+def seed_node_table(cfg: ScaleTwoWLConfig, data: TwoWLData, params: dict,
+                    device, seed: int) -> None:
+    """Copy `n2v_embeddings(cfg, data, device, seed)` into the node table
+    `params["emb"]`, ready on return. A `twowl_scale.n2v` span."""
+    with span("twowl_scale.n2v"):
+        emb0 = n2v_embeddings(cfg, data, device, seed)
+        with torch.no_grad():
+            params["emb"].copy_(emb0)
+        _sync(torch.device(device))
 
 
 def lr_schedule(cfg: ScaleTwoWLConfig) -> np.ndarray | None:
@@ -291,15 +320,11 @@ def run_twowl_scale(cfg: ScaleTwoWLConfig = ScaleTwoWLConfig(), device=None,
     n2v_seconds = 0.0
     if cfg.node_feature == "n2v":
         tn = time.perf_counter()
-        emb0 = n2v_embeddings(cfg, data, device, n2v_seed)
-        with torch.no_grad():
-            params["emb"].copy_(emb0)
-        _sync(device)
+        seed_node_table(cfg, data, params, device, n2v_seed)
         n2v_seconds = time.perf_counter() - tn
 
     t0 = time.perf_counter()
-    arrays = (m.SplitArrays.from_split(data.train, device),
-              m.SplitArrays.from_split(data.val, device))
+    arrays = split_operands(data, device)
     operand_seconds = time.perf_counter() - t0
 
     out = train_and_score(cfg, data, arrays, params, device, agg_1wl, verbose)
