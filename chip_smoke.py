@@ -4,12 +4,13 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only scale,n2v   # some groups, while working
 
-Builds kernels K1, K3 and K2 (with K2's gradient) from
+Builds kernels K1, K3 and K2 (with K2's gradient) and the row gather from
 `linkpred_tpu_torch/csrc/` (one nvcc per source, all at once), holds each
 against its plain PyTorch version on the card, times it beside its bound
 (the bytes it must move over the card's memory rate) and beside one PyTorch
-library call for the same function, and drives the port's paths through the
-entry points a user calls:
+library call for the same function (the row gather at both benchmark cells'
+shapes, with its launch shape and PyTorch's), and drives the port's paths
+through the entry points a user calls:
 TwoWL on fb-pages-food at the published-best widths (`train_routine_fused`,
 `run_twowl`; K1 and K3), collab-scale GCN training at the full published
 config (`train_collab`, `cli scale --family gcn`; K3, K2 and K2's gradient,
@@ -55,7 +56,7 @@ limit as nvidia-smi gives them, and last `{"ok": true, "device": {...}}`.
 Nothing catches a failed phase: without a card, or without the rest of the
 repository, it raises and exits non-zero before printing any result. With
 `--only` (groups `slice`, `gcn`, `sweep`, `n2v`, `scale`, `seal`,
-`surface`, `parallel`) only those
+`surface`, `parallel`, `gather`) only those
 groups' phases run and the run ends with a line `{"partial": [...]}` in place
 of the kernels line and the last line: a partial run proves nothing about the
 rest.
@@ -320,12 +321,12 @@ def kernel_name(name):
         "(anonymous namespace)::", "").split("(")[0]
 
 
-def traced_kernels(fn):
-    """Kernel name (`kernel_name`) -> the times the card ran it in `fn()`,
-    from one torch.profiler capture, kernels replayed from a CUDA graph
-    included. As in `profiled_ms`, `PROFILE_LEAD` small kernels, which the
-    profiler may lose, go first, and `PROFILE_TRAIL` follow; they are
-    counted too, as `add` kernels."""
+def traced_events(fn):
+    """(kernel name (`kernel_name`), device us) of every kernel the card
+    ran in `fn()`, from one torch.profiler capture, kernels replayed from a
+    CUDA graph included. As in `profiled_ms`, `PROFILE_LEAD` small kernels,
+    which the profiler may lose, go first, and `PROFILE_TRAIL` follow; they
+    are listed too, as `add` kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     lead = torch.zeros(32, device="cuda")
@@ -341,20 +342,30 @@ def traced_kernels(fn):
         for _ in range(PROFILE_TRAIL):
             lead.add_(1.0)
         torch.cuda.synchronize()
+    return [(kernel_name(e.name), e.time_range.elapsed_us())
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def traced_kernels(fn):
+    """Kernel name -> the times the card ran it in `fn()`
+    (`traced_events`)."""
     counts = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = kernel_name(e.name)
-            counts[name] = counts.get(name, 0) + 1
+    for name, _ in traced_events(fn):
+        counts[name] = counts.get(name, 0) + 1
     return counts
 
 
+# the wrappers whose launches a replayed epoch is checked against
+WRAPPERS = ("spmm_ell", "spmm_bucketed", "gather_rows")
+
+
 def wrapper_kernels(counts):
-    """K1's and K3's kernels among `traced_kernels`' counts, by wrapper
-    (`spmm_ell`, `spmm_bucketed`): each launch of a wrapper runs one kernel
-    whose name starts with the wrapper's."""
+    """K1's, K3's and the row gather's kernels among `traced_kernels`'
+    counts, by wrapper (`WRAPPERS`): each launch of a wrapper runs one
+    kernel whose name starts with the wrapper's."""
     return {w: sum(n for k, n in counts.items() if k.startswith(w))
-            for w in ("spmm_ell", "spmm_bucketed")}
+            for w in WRAPPERS}
 
 
 def _step_capture(run, steps):
@@ -811,20 +822,16 @@ def launch_rates(run, hk):
             if v - two.get(k, 0)}
 
 
-def graph_launch_rates(dev, hk, data, cfg, run, replays=10):
-    """`launch_rates` of the single-trial loop (`train_loop`), which
-    replays its epoch from a CUDA graph, so the wrappers count an epoch's
-    launches once, at the capture: the counts over the call that captures
-    (its epoch recorded once, then replayed), with the K1 and K3 kernels
-    that a device trace of `replays` replayed epochs shows per epoch, which
-    must be as many. Returns (launches by kernel and width, device kernels
-    per replayed epoch by wrapper)."""
+def single_trial_loop(dev, data, cfg, run, epochs):
+    """`loop(a, b)`: epochs a..b of fb-pages-food's single-trial loop
+    (`train_loop`, one CUDA graph an epoch after the first) from one
+    init, over a schedule of `epochs`."""
     from linkpred_tpu_torch.models import twowl as m
     from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
 
     pos_e, neg_e = (torch.as_tensor(a, dtype=torch.long, device=dev)
                     for a in tp.batch_schedule(
-                        data, dataclasses.replace(run, epochs=2 + replays)))
+                        data, dataclasses.replace(run, epochs=epochs)))
     inputs = (m.SplitArrays.from_split(data.train, dev),
               m.SplitArrays.from_split(data.val, dev),
               torch.as_tensor(data.val.y, device=dev),
@@ -840,6 +847,21 @@ def graph_launch_rates(dev, hk, data, cfg, run, replays=10):
         m.train_loop(p, opt, gen, pos_e[a:b], neg_e[a:b], *inputs, cfg,
                      data.num_nodes, init_best=best)
 
+    return loop
+
+
+def graph_launch_rates(dev, hk, data, cfg, run, replays=10):
+    """`launch_rates` of the single-trial loop (`train_loop`), which
+    replays its epoch from a CUDA graph, so the wrappers count an epoch's
+    launches once, at the capture: the counts over the call that captures
+    (its epoch recorded once, then replayed), with the K1 and K3 kernels
+    that a device trace of `replays` replayed epochs shows per epoch, which
+    must be as many. Returns (launches by kernel and width, device kernels
+    per replayed epoch by wrapper)."""
+    from linkpred_tpu_torch.models import twowl as m
+
+    loop = single_trial_loop(dev, data, cfg, run, 2 + replays)
+
     def counted(fn):
         launches, epochs = dict(hk.LAUNCHES_BY_WIDTH), dict(m.EPOCH_COUNTS)
         fn()
@@ -853,7 +875,7 @@ def graph_launch_rates(dev, hk, data, cfg, run, replays=10):
     assert epochs == {"eager": 0, "replayed": 1, "captures": 1}, epochs
     per_wrapper = {w: sum(v for k, v in rates.items()
                           if k.startswith(w + " "))
-                   for w in ("spmm_ell", "spmm_bucketed")}
+                   for w in WRAPPERS}
     readings = []
     for _ in range(3):  # a capture may lose events: at most three
         ran = {}
@@ -865,7 +887,7 @@ def graph_launch_rates(dev, hk, data, cfg, run, replays=10):
                          for w, n in wrapper_kernels(ran).items()})
         if readings[-1] == per_wrapper:
             return rates, readings[-1]
-    raise AssertionError(f"replayed epochs ran {readings} K1/K3 kernels, "
+    raise AssertionError(f"replayed epochs ran {readings} K1/K3/gather kernels, "
                          f"the capture recorded {per_wrapper}")
 
 
@@ -3756,8 +3778,12 @@ def slice_phases(dev, hk, data, run, trn, rates):
     l_plan, l_ell = res_d["plan"]["loss_history"], res_d["ell"]["loss_history"]
     assert np.isfinite(l_ell).all() and np.isfinite(l_plan).all()
     np.testing.assert_allclose(l_ell, l_plan, rtol=LOSS_RTOL)
-    assert set(res_d["plan"]["launches"].values()) == {0}
-    assert set(res_d["plan"]["ran"].values()) == {0}, res_d["plan"]["ran"]
+    # 'plan' runs no K1 or K3; both aggregations gather on the row gather
+    plan_launches, plan_ran = res_d["plan"]["launches"], res_d["plan"]["ran"]
+    assert plan_launches.pop("gather_rows") > 0, plan_launches
+    assert plan_ran.pop("gather_rows") > 0, plan_ran
+    assert set(plan_launches.values()) == {0}, plan_launches
+    assert set(plan_ran.values()) == {0}, plan_ran
     ran_d, epochs_d = res_d["ell"]["ran"], res_d["ell"]["epochs"]
     assert epochs_d["eager"] + epochs_d["replayed"] == E_d, epochs_d
     assert ran_d["spmm_ell"] >= 2 * cfg_d.depth1 * E_d, ran_d
@@ -3854,8 +3880,205 @@ def slice_phases(dev, hk, data, run, trn, rates):
     return max_err
 
 
+def launch_shapes(fn):
+    """(kernel name, grid, block, launches) of the device kernels one call
+    of `fn` runs, from the chrome trace of a torch.profiler capture: how a
+    kernel was launched, as the trace records it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    shapes = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            key = (kernel_name(e["name"]), str(e["args"].get("grid")),
+                   str(e["args"].get("block")))
+            shapes[key] = shapes.get(key, 0) + 1
+    return [[*k, n] for k, n in sorted(shapes.items())]
+
+
+def gather_work(x, idx, y=None, j=None):
+    """(bytes, flops) of `gather_rows(x, idx, y, j)`: the output and the
+    indices once, and each table row an index names once (`y`'s own rows
+    whole when `j` is None; a row both `idx` and `j` name, when `y` is
+    `x`, once); one multiply an element with `y`."""
+    row = x.shape[1] * x.element_size()
+    nbytes = idx.numel() * (row + 8)
+
+    def named(t, *index):
+        i = torch.cat(index)
+        return int(torch.unique(i[i < t.shape[0]]).numel()) * row
+
+    if y is None:
+        nbytes += named(x, idx)
+    elif j is None:
+        nbytes += named(x, idx) + y.numel() * y.element_size()
+    elif y is x:
+        nbytes += j.numel() * 8 + named(x, idx, j)
+    else:
+        nbytes += j.numel() * 8 + named(x, idx) + named(y, j)
+    flops = 0 if y is None else idx.numel() * x.shape[1]
+    return nbytes, flops
+
+
+def scale_cell_loop(dev, epochs):
+    """`loop(a, b)` as `single_trial_loop`, on the twowl-50k.train cell's
+    settings: `run_twowl_scale`'s data and widths at a val pass every
+    epoch and a constant lr (`ScaleTwoWLConfig(eval_every=1,
+    warmup_epochs=0)`), 'ell', from a random node table (node2vec's
+    seeding changes no shape)."""
+    from linkpred_tpu_torch.models import twowl as m
+    from linkpred_tpu_torch.pipelines import twowl_pipeline as tp
+    from linkpred_tpu_torch.pipelines import twowl_scale as ts
+
+    cfg = ts.ScaleTwoWLConfig(eval_every=1, warmup_epochs=0, epochs=epochs)
+    data = ts.build_scale_data(cfg)
+    trn, val = ts.split_operands(data, dev)
+    mcfg = ts.model_config(cfg, data, "ell")
+    p = m.init_params(mcfg, torch.Generator().manual_seed(0), dev)
+    opt = m.adam(p, mcfg.learning_rate)
+    pos_e, neg_e = (torch.as_tensor(a, dtype=torch.long, device=dev)
+                    for a in ts.batch_schedule(cfg, data))
+    inputs = (trn, val, torch.as_tensor(data.val.y, device=dev),
+              tp.node_features(mcfg, data, dev))
+    best = (m.tree_map(lambda t: t.detach().clone(), p), 0.0)
+
+    def loop(a, b):
+        m.train_loop(p, opt, None, pos_e[a:b], neg_e[a:b], *inputs, mcfg,
+                     data.num_nodes, early_stop=None, eval_every=1,
+                     init_best=best)
+
+    return loop
+
+
+def epoch_gathers(loop, hk, replays=5):
+    """The row gathers of one replayed epoch of `loop`'s main path:
+    (shape -> launches an epoch, as the capture called
+    `hopper_kernels.gather_rows`; the gather kernels that a device trace
+    of `replays` replays ran, launches and device ms an epoch). A shape is
+    (table rows, width, dtype, rows gathered, second operand: None, "rows"
+    for y's own rows, or "gathered" for x's rows named by j)."""
+    from linkpred_tpu_torch.models import twowl as m
+
+    calls, real = {}, hk.gather_rows
+
+    def spy(x, idx, y=None, j=None):
+        assert y is None or j is None or y is x, "a second table"
+        second = None if y is None else "rows" if j is None else "gathered"
+        key = (x.shape[0], x.shape[1], x.dtype, idx.shape[0], second)
+        calls[key] = calls.get(key, 0) + 1
+        return real(x, idx, y, j)
+
+    loop(0, 1)  # the optimizer's first epoch, op by op
+    epochs = dict(m.EPOCH_COUNTS)
+    with mock.patch.object(hk, "gather_rows", spy):
+        loop(1, 2)  # the epoch's capture, then its first replay
+    assert {k: v - epochs[k] for k, v in m.EPOCH_COUNTS.items()} == {
+        "eager": 0, "replayed": 1, "captures": 1}
+    readings = []
+    for _ in range(3):  # a capture may lose events: at most three
+        us = [t for name, t in traced_events(lambda: loop(2, 2 + replays))
+              if name.startswith("gather_rows")]
+        readings.append({"launches": len(us) / replays,
+                         "device_ms": sum(us) / 1e3 / replays})
+        if readings[-1]["launches"] == sum(calls.values()):
+            return calls, readings[-1]
+    raise AssertionError(f"replayed epochs ran {readings} gather kernels, "
+                         f"the capture called {calls}")
+
+
+def gather_phases(dev, hk, data, cfg, run):
+    """The row gather (`csrc/gather_rows.cu`) on both cells' main paths:
+    the gathers that a replayed epoch of twowl-50k.train's loop and of
+    fb-pages-food's single-trial loop call, counted at their capture, and
+    the gather kernels' launches and device ms in a trace of the replays.
+    Then each shape they called: bit for bit the plain version (twice),
+    timed in turns against it beside its bound and PyTorch's own call
+    (`x[idx]`; for the edge product the parent's three launches `x[src] *
+    x[dst]`; for a gradient term the parent's multiply of the saved
+    gathered rows), and both kernels' launch shapes. Returns the rows of
+    the kernels line."""
+    from linkpred_tpu_torch.ops import sddmm as sd
+
+    loops = {"50k": lambda: scale_cell_loop(dev, 7),
+             "fb": lambda: single_trial_loop(dev, data, cfg, run, 7)}
+    epoch, rows_out = {}, []
+    for cell, make in loops.items():
+        calls, traced = epoch_gathers(make(), hk)
+        timed_ms = 0.0
+        for seed, ((n, f, dtype, count, second), launches) in enumerate(
+                sorted(calls.items(), key=str)):
+            name = (f"{cell} [{n}, {f}] {str(dtype).split('.')[-1]} "
+                    f"rows={count} {second or 'gather'}")
+            rng = np.random.default_rng(seed)
+            x = torch.from_numpy(rng.standard_normal((n, f)).astype(
+                np.float32)).to(dev, dtype)
+            idx = torch.from_numpy(rng.integers(0, n, count)).to(dev)
+            ops = [x, idx]
+            if second == "gathered":
+                j = torch.from_numpy(rng.integers(0, n, count)).to(dev)
+                ops += [x, j]
+                library = lambda: x[idx] * x[j]  # noqa: E731
+                kind = "parent x[src] * x[dst] (three launches)"
+            elif second == "rows":
+                g = torch.from_numpy(rng.standard_normal((count, f)).astype(
+                    np.float32)).to(dev, dtype)
+                ops.append(g)
+                xd = x[idx]
+                library = lambda: g * xd  # noqa: E731
+                kind = "parent g * saved x[dst] (one multiply, no gather)"
+            else:
+                library = lambda: x[idx]  # noqa: E731
+                kind = "x[idx]"
+            before = hk.LAUNCHES["gather_rows"]
+            got, again = hk.gather_rows(*ops), hk.gather_rows(*ops)
+            want = hk.gather_rows_reference(*ops)
+            torch.cuda.synchronize()
+            assert hk.LAUNCHES["gather_rows"] == before + 2, name
+            assert torch.equal(got, want) and torch.equal(got, again), name
+            assert torch.equal(got, library()), name
+            times = report(
+                time_in_turns(lambda: hk.gather_rows_reference(*ops),
+                              lambda: hk.gather_rows(*ops)),
+                gather_work(*ops), hk, dev, library)
+            timed_ms += times["ms"] * launches
+            phase("gather_rows", shape=name, x=[n, f], dtype=str(dtype),
+                  rows=count, second=second, bitwise_equal=True,
+                  launches_per_epoch=launches, library_call=kind,
+                  kernel_launch=launch_shapes(lambda: hk.gather_rows(*ops)),
+                  library_launch=launch_shapes(library), **times)
+            rows_out.append((name, launches, times))
+            del x, idx, ops, got, again, want
+        epoch[cell] = {"launches": sum(calls.values()),
+                       "traced": traced, "timed_ms": timed_ms}
+    # the edge product's backward at the 50k train shape: the two fused
+    # terms and their row sums, bit for bit autograd's
+    src, dst = (torch.from_numpy(np.random.default_rng(s).integers(
+        0, 50000, 703916)).to(dev) for s in (1, 2))
+    x = torch.randn((50000, 16), device=dev)
+    g = torch.randn((703916, 16), device=dev)
+    grads = []
+    for fn in (lambda t: sd.edge_hadamard(src, dst, t),
+               lambda t: t[src] * t[dst]):
+        t = x.clone().requires_grad_()
+        fn(t).backward(g)
+        grads.append(t.grad)
+    assert torch.equal(*grads)
+    phase("gather_rows_epoch", per_epoch=epoch,
+          hadamard_backward_bitwise_equal=True)
+    return rows_out
+
+
 GROUPS = ("slice", "gcn", "sweep", "n2v", "scale", "seal", "surface",
-          "parallel")
+          "parallel", "gather")
 
 
 def main():
@@ -3887,7 +4110,8 @@ def main():
     # (b) build K1, K3, K2 and the empty kernel (the floor under a kernel's
     # time) from the sources in this checkout, one nvcc per source, all at
     # once
-    kernel_names = ("spmm_ell", "spmm_bucketed", "sddmm", "empty_launch")
+    kernel_names = ("spmm_ell", "spmm_bucketed", "sddmm", "gather_rows",
+                    "empty_launch")
     t0 = time.perf_counter()
     build.libraries(kernel_names)
     phase("b_build", kernels=kernel_names, nvcc=build.nvcc_path(),
@@ -3924,6 +4148,8 @@ def main():
         phase("launch_rates", launches_per_epoch=rates,
               slice_replayed_kernels_per_epoch=ran)
     trn = m.SplitArrays.from_split(data.train, dev)
+    gather = gather_phases(dev, hk, data, cfg_ell, run) \
+        if "gather" in only else None
 
     max_err = slice_phases(dev, hk, data, run, trn, rates) \
         if "slice" in only else None
@@ -3954,7 +4180,9 @@ def main():
     def row(name, path, source, replaces, launches, err, times):
         return {"name": name, "route": "cuda", "path": path,
                 "source": f"linkpred_tpu_torch/csrc/{source}",
-                "replaces": f"linkpred_tpu/ops/pallas_kernels.py:{replaces}",
+                "replaces": (f"linkpred_tpu/ops/pallas_kernels.py:{replaces}"
+                             if replaces else "no TPU kernel: a row gather "
+                             "the JAX package leaves to XLA"),
                 "launches": launches, "max_abs_err": err, "ms": times["ms"],
                 "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
                 "bound_by": times["bound_by"],
@@ -4038,6 +4266,11 @@ def main():
         row("spmm_ell", "twowl trial-sharded, 4 gloo ranks", "spmm_ell.cu", 68,
             par["twowl_launches"]["spmm_ell"], par["k1_err"],
             par["times"]["spmm_ell"]),
+        # the row gather at each shape a replayed epoch of the two cells'
+        # loops called, bit for bit the plain version (error 0), with the
+        # launches an epoch that the capture made at that shape
+        *[row("gather_rows", f"twowl epoch {name}", "gather_rows.cu", None,
+              launches, 0.0, times) for name, launches, times in gather],
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

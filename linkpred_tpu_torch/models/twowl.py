@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from linkpred_tpu_torch.ops.gather import gather_rows
 from linkpred_tpu_torch.ops.sddmm import edge_hadamard
 from linkpred_tpu_torch.ops.segment import (
     SegmentPlan,
@@ -224,7 +225,7 @@ def gcn_conv(p: dict, x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         src, dst, num_rows, mask, plan=plan)
     # coefficients and bias follow the feature dtype: an f32 operand would
     # promote a bf16 2-WL stack back to f32
-    msgs = h[src] * coeff.to(h.dtype)[:, None]
+    msgs = gather_rows(h, src) * coeff.to(h.dtype)[:, None]
     if ell is not None:
         agg = segment_sum_ell(num_rows, msgs, plan[0], *ell)
     elif plan is not None:
@@ -394,7 +395,7 @@ def forward(params: dict, cfg: TwoWLConfig, node_deg: torch.Tensor,
     N = node_deg.shape[0]
     kernel = cfg.agg_1wl == "ell"
 
-    x = params["emb"][node_deg]
+    x = gather_rows(params["emb"], node_deg)
     x = graph_norm(params["emb_gn"], x, cfg.eps)
     x = drop(x, cfg.dp_emb)
 
@@ -458,7 +459,7 @@ def forward(params: dict, cfg: TwoWLConfig, node_deg: torch.Tensor,
                 parts.append(torch.relu(h))
             e = parts[0] + parts[1]
 
-    sel = e[sel_idx]
+    sel = gather_rows(e, sel_idx)
     paired = (sel[0::2] * sel[1::2]).float()
     return (paired @ params["pred_w"] + params["pred_b"])[:, 0]
 

@@ -14,6 +14,9 @@ EPOCH_COUNTS` counts the single-trial loop's replays).
     K3 spmm_bucketed  csrc/spmm_bucketed.cu  bucketed ELL SpMM, f32 or bf16
     K2 sddmm          csrc/sddmm.cu          per-edge dot products -> f32
        sddmm_grad     csrc/sddmm.cu          their gradient, f32 or bf16
+       gather_rows    csrc/gather_rows.cu    row gather, times a second
+                                             operand's rows if given, f32
+                                             or bf16 (no TPU kernel's port)
 
 `spmm_ell_auto` and `sddmm_auto` are the reference's dispatch entries: thin
 calls of K1 and K2 that build the kernels' operands.
@@ -54,6 +57,10 @@ the slot count D and the row count M too) inside their launch functions:
                    the rows whose runs it holds; a second pass adds the
                    pieces of runs that span windows, in window order
 
+`gather_rows` cuts its output into chunks of 16 bytes, or 4, or one
+element, the widest that the row's bytes and the base addresses allow;
+consecutive threads take consecutive chunks, many rows a block.
+
 Every path sums in a fixed order, so two launches on the same inputs agree
 bit for bit.
 """
@@ -67,10 +74,11 @@ import numpy as np
 import torch
 
 from linkpred_tpu_torch.kernels import build
-from linkpred_tpu_torch.ops.rows import add_rows_
+from linkpred_tpu_torch.ops.rows import add_rows_, with_zero_row
 
 # host launches by wrapper: a CUDA graph's kernels count at its capture only
-LAUNCHES = {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0, "sddmm_grad": 0}
+LAUNCHES = {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0, "sddmm_grad": 0,
+            "gather_rows": 0}
 # the same launches by kernel and feature width, under keys "<kernel> F=<f>"
 LAUNCHES_BY_WIDTH: dict[str, int] = {}
 
@@ -116,6 +124,7 @@ _ENTRY_POINTS = {
     "sddmm": ("sddmm", [_I32] + [_P] * 5 + [_I64] * 4 + [_P]),
     "sddmm_grad": ("sddmm_grad", [_I32] + [_P] * 11 + [_I64] * 4
                    + [_I32, _P]),
+    "gather_rows": ("gather_rows", [_I32] + [_P] * 5 + [_I64] * 4 + [_P]),
     "empty_launch": ("empty_launch", [_P]),
 }
 _SOURCES = {"sddmm_grad": "sddmm"}
@@ -477,3 +486,76 @@ def sddmm_grad(g: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                 state.data_ptr(), run_row.data_ptr(), e, nx, ny, f, int(two),
                 _stream(x.device))
     return dx, dy
+
+
+# ---------------------------------------------------------------------------
+# row gather (no TPU kernel: the JAX package leaves its gathers to XLA)
+# ---------------------------------------------------------------------------
+
+
+def _take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """`t[i]` along dim 0, where `i == len(t)` reads a zero row and any
+    other index outside `[0, len(t))` raises IndexError."""
+    n = t.shape[0]
+    if i.numel():
+        lo, hi = int(i.min()), int(i.max())
+        if lo < 0 or hi > n:
+            raise IndexError(f"gather_rows: index {lo if lo < 0 else hi} "
+                             f"outside a table of {n} rows")
+        if hi == n:
+            t = with_zero_row(t)
+    return t[i]
+
+
+def gather_rows_reference(x: torch.Tensor, idx: torch.Tensor,
+                          y: torch.Tensor | None = None,
+                          j: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch `gather_rows`: `x[idx]`, times `y[j]` (or `y`) when `y`
+    is given, in the operands' type. An index equal to its table's row
+    count reads a zero row; any other index outside `[0, rows)` raises
+    IndexError. Differentiable: autograd takes `x[idx]`'s own gradient."""
+    out = _take(x, idx)
+    if y is not None:
+        out = out * (y if j is None else _take(y, j))
+    return out
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor,
+                y: torch.Tensor | None = None,
+                j: torch.Tensor | None = None) -> torch.Tensor:
+    """The row gather `out[r] = x[idx[r]]`, or with `y` the product
+    `out[r] = x[idx[r]] * y[j[r]]` (`y[r]` without `j`), in one launch.
+
+    `x` [NX, F] and `y` [NY, F] both float32 or both bfloat16, `idx` and
+    `j` [R] int64 -> [R, F] of `x.dtype`, bit for bit the plain result. An
+    index equal to its table's row count reads a zero row; on the card any
+    other index outside the table stops the kernel, which the next
+    synchronise reports. CUDA tensors run `csrc/gather_rows.cu` (built at
+    first use); CPU tensors run `gather_rows_reference`."""
+    if _on_cpu(*(t for t in (x, idx, y, j) if t is not None)):
+        return gather_rows_reference(x, idx, y, j)
+    operands = [("x", x, _FEATURE_DTYPES, 2), ("idx", idx, (torch.int64,), 1)]
+    if y is not None:
+        operands.append(("y", y, (x.dtype,), 2))
+    if j is not None:
+        operands.append(("j", j, (torch.int64,), 1))
+    _check_cuda("gather_rows", x.device, operands)
+    r, (nx, f) = idx.shape[0], x.shape
+    ny = r if y is None else y.shape[0]
+    if (j is not None and (y is None or j.shape[0] != r)) or (
+            y is not None and (y.shape[1] != f or (j is None and ny != r))):
+        raise ValueError(f"gather_rows: x {tuple(x.shape)}, idx "
+                         f"{tuple(idx.shape)}, y "
+                         f"{None if y is None else tuple(y.shape)}, j "
+                         f"{None if j is None else tuple(j.shape)}")
+    # the kernel counts the output's chunks, at most one an element
+    _check_int32_range("gather_rows", r * f)
+    out = torch.empty((r, f), dtype=x.dtype, device=x.device)
+    if r == 0 or f == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _launch("gather_rows", f, _DTYPE_CODES[x.dtype], x.data_ptr(),
+                idx.data_ptr(), None if y is None else y.data_ptr(),
+                None if j is None else j.data_ptr(), out.data_ptr(), r, nx,
+                ny, f, _stream(x.device))
+    return out

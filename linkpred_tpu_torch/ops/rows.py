@@ -34,3 +34,22 @@ def add_rows(out: torch.Tensor, index: torch.Tensor,
     if out.is_cuda:
         return out.index_put((index,), src, accumulate=True)
     return out.index_add(0, index, src)
+
+
+def add_gathered_rows_(out: torch.Tensor, index: torch.Tensor,
+                       src: torch.Tensor) -> torch.Tensor:
+    """`add_rows_` for the gradient of a row gather, whose kernel has
+    already held `index` to `[0, len(out))`: on the card the call autograd
+    makes for the gradient of `x[index]`, `index_put_` with accumulate and
+    without the range check that the public `index_put_` adds (two
+    reductions, two compares and two asserts a call)."""
+    if out.is_cuda:
+        return torch.ops.aten._index_put_impl_(out, (index,), src,
+                                               accumulate=True, unsafe=True)
+    return add_rows_(out, index, src)
+
+
+def with_zero_row(x: torch.Tensor) -> torch.Tensor:
+    """`x` [N, ...] with a zero row appended at index N: the row that a
+    padded slot's sentinel index N reads."""
+    return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])

@@ -25,7 +25,8 @@ import torch
 
 from linkpred_tpu_torch.ops.hopper_kernels import (launch_order, spmm_bucketed,
                                                   spmm_ell)
-from linkpred_tpu_torch.ops.rows import add_rows
+from linkpred_tpu_torch.ops.gather import gather_rows
+from linkpred_tpu_torch.ops.rows import add_rows, with_zero_row
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -244,16 +245,12 @@ def composed_operands(plan: SegmentPlan, values: np.ndarray, sentinel: int,
 # ---------------------------------------------------------------------------
 
 
-def _with_zero_row(x: torch.Tensor) -> torch.Tensor:
-    return torch.cat([x, x.new_zeros((1, x.shape[1]))], dim=0)
-
-
 def _bucket_sum(x: torch.Tensor, inv_perm: torch.Tensor,
                 buckets: tuple) -> torch.Tensor:
     """out[r] = sum over bucket row inv_perm[r] of ext[idx]; ext = x plus a
     zero row at index len(x). `x` is [N, ...]; trailing dims are flattened."""
     tail = x.shape[1:]
-    ext = _with_zero_row(x.reshape(x.shape[0], -1))
+    ext = with_zero_row(x.reshape(x.shape[0], -1))
     f = ext.shape[1]
     parts = [ext.index_select(0, b.reshape(-1)).reshape(*b.shape, f).sum(1)
              for b in buckets]
@@ -264,10 +261,9 @@ def _bucket_sum(x: torch.Tensor, inv_perm: torch.Tensor,
 
 def _gather_dst(g: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """The slot-partition transpose of a segment sum: slot s gets g[dst[s]]
-    (0 for sentinel slots)."""
-    tail = g.shape[1:]
-    out = _with_zero_row(g.reshape(g.shape[0], -1)).index_select(0, dst)
-    return out.reshape((dst.shape[0],) + tuple(tail))
+    (0 for sentinel slots, `dst[s] == len(g)`: the row gather's zero
+    row)."""
+    return gather_rows(g, dst)
 
 
 class _SegmentSumPlanned(torch.autograd.Function):

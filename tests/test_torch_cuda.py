@@ -242,11 +242,15 @@ def test_forward_trials_ell_matches_plan(cuda, fb_data):
     (l_e, loss_e, g_e, n_e), (l_p, loss_p, g_p, n_p) = (results["ell"],
                                                         results["plan"])
     # eval: depth1 K1 and 1 + depth2 K3; train: the same forward plus depth2
-    # K3 backward launches (K1's backward is a gather)
+    # K3 backward launches (K1's backward is a gather). Both aggregations
+    # gather on the row gather: the edge product (eval and train), its two
+    # gradient terms, and depth1 segment-sum backwards (`_gather_dst`)
+    gathers = 1 + 3 + cfg.depth1
     assert n_e == {"spmm_ell": 2 * cfg.depth1,
                    "spmm_bucketed": 2 * (1 + cfg.depth2) + cfg.depth2,
-                   "sddmm": 0, "sddmm_grad": 0}, n_e
-    assert set(n_p.values()) == {0}
+                   "sddmm": 0, "sddmm_grad": 0, "gather_rows": gathers}, n_e
+    assert n_p == {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0,
+                   "sddmm_grad": 0, "gather_rows": gathers}, n_p
     # random-init logits reach ~100, whose f32 sums round at ~1e-5
     torch.testing.assert_close(l_e, l_p, rtol=1e-5,
                                atol=1e-5 * float(l_p.abs().max()))
@@ -418,9 +422,9 @@ def test_gcn_step_on_kernels_matches_plain(cuda, gcn_problem):
     (l_k, g_k, moved_k), (l_p, g_p, moved_p) = results
     # the score's backward is K2's gradient kernel
     assert moved_k == {"spmm_ell": 0, "spmm_bucketed": 4, "sddmm": 1,
-                       "sddmm_grad": 1}
+                       "sddmm_grad": 1, "gather_rows": 0}
     assert moved_p == {"spmm_ell": 0, "spmm_bucketed": 0, "sddmm": 0,
-                       "sddmm_grad": 0}
+                       "sddmm_grad": 0, "gather_rows": 0}
     torch.testing.assert_close(l_k, l_p, rtol=1e-4, atol=1e-6)
     for k in g_k:
         torch.testing.assert_close(g_k[k], g_p[k], rtol=1e-4, atol=1e-6,
@@ -822,6 +826,10 @@ def test_bf16_train_step_ell_matches_plan(cuda, scale_data):
         loss, logits, _ = m.train_step(p, m.adam(p, 1e-3), None, pos, neg,
                                        trn, mcfg, data.num_nodes)
         launched = {k: hk.LAUNCHES[k] - before[k] for k in before}
+        # both aggregations: the row gather for the node table, depth1
+        # h[src], the edge product and its two gradient terms, the pair
+        # select and depth1 segment-sum backwards (`_gather_dst`)
+        assert launched.pop("gather_rows") == 9, launched
         if agg == "ell":
             # K1: depth1 forward passes; K3: the degree pass and depth2
             # forward and backward passes
@@ -944,14 +952,15 @@ def test_dispatch_entries_launch_k1_and_k2(cuda):
                                rtol=1e-5, atol=1e-4)
     launched = {k: hk.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"spmm_ell": 2, "spmm_bucketed": 1, "sddmm": 1,
-                        "sddmm_grad": 0}
+                        "sddmm_grad": 0, "gather_rows": 0}
 
 
 @pytest.mark.parametrize("agg", ["plan", "ell"])
 def test_entry_on_the_card_matches_cpu(cuda, agg):
     """`graft_entry.entry()` runs on the card by default and scores the toy
     graph as its CPU run does (the init is drawn on the host from seed 0);
-    'ell' launches K1 and K3, 'plan' neither."""
+    'ell' launches K1 and K3, 'plan' neither; both gather on the row
+    gather."""
     from linkpred_tpu_torch.graft_entry import entry
 
     fn, args = entry(agg_1wl=agg)
@@ -963,6 +972,7 @@ def test_entry_on_the_card_matches_cpu(cuda, agg):
     fn_cpu, args_cpu = entry(device="cpu", agg_1wl=agg)
     torch.testing.assert_close(got.cpu(), fn_cpu(*args_cpu), rtol=1e-5,
                                atol=1e-5)
+    assert launched.pop("gather_rows") > 0, launched
     if agg == "ell":
         assert launched["spmm_ell"] > 0 and launched["spmm_bucketed"] > 0
     else:
